@@ -1,0 +1,380 @@
+"""Drive the PyTorch/CUDA port (``exsr_torch``) on one GPU and check it.
+
+Run from the repository root on a machine with an NVIDIA H100::
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each:
+
+1. environment: torch and CUDA versions, nvcc, the card and its power limit;
+2. build: every hand-written kernel, compiled from ``exsr_torch/csrc``;
+3. kernels: each kernel against its plain PyTorch version at the main
+   path's shapes (batch 16), with its time, the plain version's time and
+   the card's lower bound for the same work;
+4. main path: the CEM-wrapped 23-block generator forward at full width
+   (LR 128 -> HR 512, x4, bf16 trunk, fp32 CEM, seeded weights) serving
+   three requests; CEM consistency, launch counts, time per forward, a
+   profile of where the time goes, and a full-width fp32 forward on a small
+   input against the same forward on the CPU;
+5. serving entry point: ``build_model(4)`` and a ``bucketed_sweep``.
+
+Any failed check raises and the script exits non-zero.  The last lines are
+the kernels summary, the ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of the
+repository beside it, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+LR, SCALE, BATCH = 128, 4, 16
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM published rates (dense)
+FP32_FLOPS = 67e12             # fp32 outside the tensor cores
+BF16_FLOPS = 989e12            # bf16 tensor cores
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({'phase': phase, **fields}), flush=True)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f'check failed: {what}')
+
+
+def cuda_ms(fn, arg_sets, iters: int) -> float:
+    """Mean ms per call from CUDA events over ``iters`` calls after a
+    warm-up, cycling through ``arg_sets`` so that inputs larger than L2 in
+    total arrive cold, as on the main path."""
+    import torch
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float, peak_flops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
+    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                      else 'operations')
+
+
+def phase_kernels(filt, device):
+    import torch
+    from exsr_torch.ops.kernels.sepfilter import (sepfilter_edge,
+                                                  sepfilter_edge_plain)
+    from exsr_torch.ops.kernels.stage4 import stage4, stage4_plain
+    gen = torch.Generator(device=device).manual_seed(0)
+    results = {}
+
+    # kernel 1: the three x4 CEM filters at their main-path shapes
+    for tag, hw, taps in (('hr', LR * SCALE, filt.w_down_1d),
+                          ('lr', LR, filt.w_inv_hth_1d)):
+        n_sets = 3 if tag == 'hr' else 12
+        xs = [torch.rand(BATCH, hw, hw, 3, generator=gen, device=device)
+              for _ in range(n_sets)]
+        kcol, krow = taps
+        out = sepfilter_edge(xs[0], kcol, krow)
+        ref = sepfilter_edge_plain(xs[0], kcol, krow)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        check(err <= 1e-5, f'sepfilter_edge[{tag}] max error {err} > 1e-5')
+        sets = [(x, kcol, krow) for x in xs]
+        ms = cuda_ms(sepfilter_edge, sets, 60)
+        plain = cuda_ms(sepfilter_edge_plain, sets, 60)
+        numel = xs[0].numel()
+        k = kcol.numel() + krow.numel()
+        bms, by = bound_ms(8 * numel + 4 * k, 2 * k * numel, FP32_FLOPS)
+        results[f'sepfilter_{tag}'] = dict(
+            shape=[BATCH, hw, hw, 3], taps=[kcol.numel(), krow.numel()],
+            max_abs_err=err, tol=1e-5, ms=ms, plain_ms=plain, bound_ms=bms,
+            bound_by=by)
+        emit('kernel', name=f'sepfilter_edge[{tag}]',
+             **results[f'sepfilter_{tag}'])
+        del xs, sets
+
+    # kernel 2: the stage-4 epilogue at LR 128, nf 64, gc 32
+    nf, gc = 64, 32
+    for dtype in (torch.bfloat16, torch.float32):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=device) \
+                .to(dtype)
+        c3 = rnd(BATCH, LR, LR, gc)
+        ps = [rnd(BATCH, LR, LR, nf + k * gc) for k in (4, 3, 2, 1)]
+        x = rnd(BATCH, LR, LR, nf)
+        # the trunk's init scale: kaiming fan-in x 0.1
+        w4 = (torch.randn(3, 3, gc, nf, generator=gen, device=device)
+              * 0.1 * (2.0 / (9 * gc)) ** 0.5).to(dtype)
+        b4 = torch.randn(nf, generator=gen, device=device) * 0.1
+        out = stage4(c3, *ps, x, w4, b4)
+        ref = stage4_plain(c3, *ps, x, w4, b4)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        if dtype == torch.float32:
+            tol = 1e-5
+            check(err <= tol, f'stage4[fp32] max error {err} > {tol}')
+        else:
+            # one bf16 ulp (<= 2^-7 relative): fp32 summation order may
+            # move the scaled sum across a bf16 rounding boundary
+            tol = '2^-7 * (1 + |ref|)'
+            excess = (diff - 2 ** -7 * (1 + ref.float().abs())).max().item()
+            check(excess <= 0, f'stage4[bf16] error beyond one ulp: {err}')
+        args = (c3, *ps, x, w4, b4)
+        ms = cuda_ms(stage4, [args], 40)
+        plain = cuda_ms(stage4_plain, [args], 40)
+        pix = BATCH * LR * LR
+        size = 2 if dtype == torch.bfloat16 else 4
+        nbytes = size * pix * (gc + 4 * nf + 2 * nf) + w4.numel() * size \
+            + 4 * nf
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        bms, by = bound_ms(nbytes, 2 * 9 * gc * nf * pix, peak)
+        tag = 'bf16' if dtype == torch.bfloat16 else 'fp32'
+        results[f'stage4_{tag}'] = dict(
+            shape=[BATCH, LR, LR, nf], dtype=tag, max_abs_err=err, tol=tol,
+            ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+        emit('kernel', name=f'stage4[{tag}]', **results[f'stage4_{tag}'])
+        del c3, ps, x, out, ref, diff, args
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_main_path(cem, filt, device, name):
+    import torch
+    from exsr_torch.cem.cem import cem_wrap
+    from exsr_torch.models.rrdb import RRDBNet
+    from exsr_torch.models.rrdb_fast import (pack_grouped_params,
+                                             rrdbnet_apply_fast)
+    from exsr_torch.ops.kernels.sepfilter import sepfilter_edge
+    from exsr_torch.ops.kernels.stage4 import stage4
+
+    net = RRDBNet(nf=64, nb=23, gc=32, upscale=SCALE, latent_channels=3,
+                  seed=0)
+    n_params = sum(p.numel() for p in net.parameters())
+    state = {k: v.to(device) for k, v in net.state_dict().items()}
+    packed = pack_grouped_params(state, dtype=torch.bfloat16)
+    # the program bench.py times: grouped bf16 trunk, fp32 CEM, no pre-pad
+    wrapped = cem_wrap(
+        lambda pk, x, z: rrdbnet_apply_fast(None, x, z, packed=pk,
+                                            dtype=torch.bfloat16),
+        filt, upscale=SCALE)
+    margins = cem.invalidity_margins_lr
+    gen = torch.Generator(device=device).manual_seed(1)
+    lr = torch.rand(BATCH, LR, LR, 3, generator=gen, device=device)
+    zs = [torch.rand(BATCH, LR * SCALE, LR * SCALE, 3, generator=gen,
+                     device=device) * 2 - 1 for _ in range(3)]
+
+    def serve(z):
+        return wrapped(packed, lr, z, margins, pre_pad=False)
+
+    with torch.inference_mode():
+        sepfilter_edge.launches = stage4.launches = 0
+        serve(zs[0])  # warm-up: first use of every library and kernel
+        torch.cuda.synchronize()
+        outs, times = [], []
+        for z in zs:
+            t0 = time.perf_counter()
+            outs.append(serve(z))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        launches = {'sepfilter_edge': sepfilter_edge.launches,
+                    'stage4': stage4.launches}
+        forwards = 1 + len(zs)
+        check(launches['sepfilter_edge'] == 5 * forwards,
+              f'sepfilter launches {launches} over {forwards} forwards')
+        check(launches['stage4'] == 69 * forwards,
+              f'stage4 launches {launches} over {forwards} forwards')
+
+        # CUDA-event time of the same forward, back to back
+        ms_events = cuda_ms(serve, [(z,) for z in zs], 6)
+        finite = all(bool(torch.isfinite(o).all()) for o in outs)
+        check(finite, 'non-finite output')
+        check(all(tuple(o.shape) == (BATCH, LR * SCALE, LR * SCALE, 3)
+                  for o in outs), 'output shape')
+        cons = max((filt.downscale(o) - lr)[:, margins:-margins,
+                                            margins:-margins].abs().max()
+                   .item() for o in outs)
+        check(cons < 5e-6, f'CEM consistency {cons} >= 5e-6')
+        distinct = (outs[0] - outs[1]).abs().max().item()
+        check(distinct > 0, 'different Z gave the same output')
+        profile = profile_forward(serve, zs[0])
+    del outs
+    torch.cuda.empty_cache()
+    ms = sorted(times)[len(times) // 2]
+    emit('main_path', device=name, batch=BATCH, lr=LR, scale=SCALE, nb=23,
+         nf=64, gc=32, nz=3, params=n_params, trunk='bf16', cem='fp32',
+         finite=finite, consistency_max=cons, consistency_tol=5e-6,
+         launches=launches, forwards=forwards, request_ms=times,
+         ms_per_forward=ms, img_per_s=1e3 * BATCH / ms,
+         ms_per_forward_events=ms_events,
+         img_per_s_events=1e3 * BATCH / ms_events, z_effect=distinct)
+    emit('profile', **profile)
+    emit('reference', **reference_check(net, cem, device))
+    return launches, forwards
+
+
+def profile_forward(serve, z):
+    """Device time by kernel over one forward (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve(z)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+
+    def self_us(e):
+        return getattr(e, 'self_device_time_total', None) or \
+            getattr(e, 'self_cuda_time_total', 0)
+    # aten:: ops repeat the device time of the kernels they launch, and
+    # 'Command Buffer Full' records the host waiting on a full launch queue
+    stall = 'Command Buffer Full'
+    events = prof.key_averages()
+    kernels = sorted(((e.key, self_us(e), e.count) for e in events
+                      if self_us(e) > 0 and not e.key.startswith('aten::')
+                      and e.key != stall), key=lambda t: -t[1])
+    total = sum(t[1] for t in kernels)
+    ours = {k: sum(t[1] for t in kernels if k in t[0])
+            for k in ('sepfilter_edge_kernel', 'stage4_kernel')}
+    return {'device_us_total': total, 'wall_us': wall_us,
+            'device_busy_share': total / wall_us,
+            'host_waits_on_full_queue_us': sum(
+                self_us(e) for e in events if e.key == stall),
+            'share': {k: (v / total if total else None)
+                      for k, v in ours.items()},
+            'top': [{'kernel': k[:90], 'us': us, 'calls': n}
+                    for k, us, n in kernels[:16]]}
+
+
+def reference_check(net, cem, device):
+    """Full-width fp32 forward on a small input, on the card (kernels) and
+    on the CPU (plain versions); fp32 with TF32 off on both sides."""
+    import torch
+    from exsr_torch.cem.cem import cem_wrap
+    from exsr_torch.models.rrdb_fast import rrdbnet_apply_fast
+    gen = torch.Generator().manual_seed(2)
+    lr = torch.rand(2, 16, 16, 3, generator=gen)
+    z = torch.rand(2, 64, 64, 3, generator=gen) * 2 - 1
+    outs = {}
+    for dev in ('cpu', device):
+        state = {k: v.to(dev) for k, v in net.state_dict().items()}
+        wrapped = cem_wrap(
+            lambda p, x, zz: rrdbnet_apply_fast(p, x, zz, dtype=None),
+            cem.device_filters(3, device=dev), upscale=SCALE)
+        with torch.inference_mode():
+            outs[str(dev)] = wrapped(state, lr.to(dev), z.to(dev),
+                                     cem.invalidity_margins_lr,
+                                     pre_pad=True).cpu()
+    err = (outs['cpu'] - outs[str(device)]).abs().max().item()
+    # fp32 through ~140 convs summed in another order on each side
+    check(err < 1e-4, f'card vs CPU max error {err} >= 1e-4')
+    return {'shape': [2, 16, 16, 3], 'dtype': 'fp32', 'pre_pad': True,
+            'max_abs_err': err, 'tol': 1e-4}
+
+
+def phase_serving():
+    import torch
+    from exsr_torch.apps.eval_sr import bucketed_sweep, build_model
+    from exsr_torch.ops.kernels.sepfilter import sepfilter_edge
+    from exsr_torch.ops.kernels.stage4 import stage4
+    cem, forward = build_model(SCALE)
+    gen = torch.Generator().manual_seed(3)
+    lr = torch.rand(1, 64, 64, 3, generator=gen)
+    zs = [torch.full((1, 256, 256, 3), v) for v in (-1.0, -0.5, 0.0, 0.5,
+                                                     1.0)]
+    sepfilter_edge.launches = stage4.launches = 0
+    t0 = time.perf_counter()
+    outs = bucketed_sweep(forward, lr, zs)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = {'sepfilter_edge': sepfilter_edge.launches,
+                'stage4': stage4.launches}
+    check(launches == {'sepfilter_edge': 5, 'stage4': 69},
+          f'serving launches {launches}')
+    check(len(outs) == len(zs), 'one output per Z')
+    for o in outs:
+        check(tuple(o.shape) == (1, 256, 256, 3), f'shape {o.shape}')
+        check(o.device.type == 'cuda' and bool(torch.isfinite(o).all()),
+              'finite CUDA output')
+        check(0.0 <= o.min().item() and o.max().item() <= 1.0, 'clip')
+    emit('serving', entry='exsr_torch.apps.eval_sr.build_model(4)',
+         sweep=len(zs), lr=64, pre_pad=True,
+         margins_lr=cem.invalidity_margins_lr, launches=launches,
+         ms_first_call=ms)
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: CUDA is not available', file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from exsr_torch.cem.cem import CEM, CEMConf
+    from exsr_torch.ops.kernels import build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device('cuda', 0)
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    emit('environment', torch=torch.__version__, cuda=torch.version.cuda,
+         nvcc=build.nvcc_path(), device=name, nvidia_smi=smi,
+         device_count=torch.cuda.device_count())
+
+    t0 = time.perf_counter()
+    report = build.build()
+    emit('build', seconds=time.perf_counter() - t0,
+         built={k: v['seconds'] for k, v in report.items()},
+         ptxas=[ln.strip() for v in report.values()
+                for ln in v['ptxas'].splitlines()
+                if 'registers' in ln or 'spill' in ln])
+
+    cem = CEM.create(CEMConf(scale_factor=SCALE))
+    filt = cem.device_filters(3, device=device)
+    kern = phase_kernels(filt, device)
+    launches, forwards = phase_main_path(cem, filt, device, name)
+    phase_serving()
+
+    # launches: the main path's total over its forwards
+    common = {'route': 'cuda', 'library_ms': None, 'forwards': forwards}
+    keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'shape')
+    summary = [
+        {'name': 'sepfilter_edge', **common,
+         'source': 'exsr_torch/csrc/sepfilter.cu',
+         'replaces': 'exsr/ops/pallas/sepfilter.py:76',
+         'launches': launches['sepfilter_edge'],
+         'launches_per_forward': launches['sepfilter_edge'] // forwards,
+         **{k: kern['sepfilter_hr'][k] for k in keys}},
+        {'name': 'stage4', **common,
+         'source': 'exsr_torch/csrc/stage4.cu',
+         'replaces': 'exsr/ops/pallas/stage4.py:82',
+         'launches': launches['stage4'],
+         'launches_per_forward': launches['stage4'] // forwards,
+         **{k: kern['stage4_bf16'][k] for k in keys}},
+    ]
+    print(json.dumps({'kernels': summary}))
+    print(smi)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name,
+        'count': torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())
