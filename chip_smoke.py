@@ -16,7 +16,13 @@ Phases, one JSON line each:
    three requests; CEM consistency, launch counts, time per forward, a
    profile of where the time goes, and a full-width fp32 forward on a small
    input against the same forward on the CPU;
-5. serving entry point: ``build_model(4)`` and a ``bucketed_sweep``.
+5. fused path: the same generator as the canonical ``RRDBNet`` with
+   ``fused_trunk=True`` (bf16 trunk through the fused RDB kernel, 69
+   launches per forward), CEM-wrapped, serving three requests with the same
+   checks, its difference from the main path's output, and its fp32
+   reference check against the CPU;
+6. serving entry point: ``build_model(4, dtype=bf16)`` and a
+   ``bucketed_sweep``.
 
 Any failed check raises and the script exits non-zero.  The last lines are
 the kernels summary, the ``nvidia-smi`` name and power limit, and
@@ -147,6 +153,64 @@ def phase_kernels(filt, device):
         emit('kernel', name=f'stage4[{tag}]', **results[f'stage4_{tag}'])
         del c3, ps, x, out, ref, diff, args
     torch.cuda.empty_cache()
+    results.update(kernel_rdb(gen, device))
+    return results
+
+
+def kernel_rdb(gen, device):
+    """Kernel 3: one residual dense block at LR 128, nf 64, gc 32, nz 3."""
+    import torch
+    from exsr_torch.ops.kernels.rrdb_block import pack_rdb, rdb, rdb_plain
+    nf, gc, nz = 64, 32, 3
+    cins = [nz + nf + i * gc for i in range(5)]
+    couts = [gc] * 4 + [nf]
+    # fp32 parameters at kaiming fan-in x 0.5, nonzero biases
+    ws = [torch.randn(co, ci, 3, 3, generator=gen, device=device)
+          * 0.5 * (2.0 / (9 * ci)) ** 0.5 for ci, co in zip(cins, couts)]
+    bs = [torch.randn(co, generator=gen, device=device) * 0.1
+          for co in couts]
+    results = {}
+    for dtype, iters in ((torch.bfloat16, 20), (torch.float32, 4)):
+        w = pack_rdb(ws, bs, dtype)
+        sets = [(torch.randn(BATCH, LR, LR, nf, generator=gen,
+                             device=device).to(dtype),
+                 (torch.rand(BATCH, LR, LR, nz, generator=gen,
+                             device=device) * 2 - 1).to(dtype), w)
+                for _ in range(2)]
+        out = rdb(*sets[0])
+        ref = rdb_plain(*sets[0])
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        if dtype == torch.float32:
+            tol = 1e-5
+            check(err <= tol, f'rdb[fp32] max error {err} > {tol}')
+        else:
+            # fp32 sums in another order may round a value to the other
+            # bf16 neighbour: in the output (one ulp, <= 2^-7 relative) or
+            # in an intermediate c_i, whose flip reaches the output diluted
+            # but can exceed one ulp of an output close to zero
+            tol = '2^-7 * |ref| + 2^-9'
+            excess = (diff - (2 ** -7 * ref.float().abs() + 2 ** -9)).max()
+            check(excess.item() <= 0, f'rdb[bf16] error {err} beyond {tol}')
+        differ = (diff > 0).float().mean().item()
+        ms = cuda_ms(rdb, sets, iters)
+        plain = cuda_ms(rdb_plain, sets, max(2, iters // 4))
+        pix = BATCH * LR * LR
+        size = 2 if dtype == torch.bfloat16 else 4
+        flops = 2 * 9 * pix * sum(ci * co for ci, co in zip(cins, couts))
+        nbytes = size * pix * (nf + nz + nf) + size * sum(
+            9 * ci * co for ci, co in zip(cins, couts)) + 4 * sum(couts)
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+        bms, by = bound_ms(nbytes, flops, peak)
+        tag = 'bf16' if dtype == torch.bfloat16 else 'fp32'
+        results[f'rdb_{tag}'] = dict(
+            shape=[BATCH, LR, LR, nf], dtype=tag, max_abs_err=err, tol=tol,
+            share_differing=differ, ms=ms, plain_ms=plain, bound_ms=bms,
+            bound_by=by, tflops=flops / ms / 1e9)
+        emit('kernel', name=f'rdb[{tag}]', **results[f'rdb_{tag}'])
+        del sets, out, ref, diff, w
+    torch.cuda.empty_cache()
     return results
 
 
@@ -156,6 +220,7 @@ def phase_main_path(cem, filt, device, name):
     from exsr_torch.models.rrdb import RRDBNet
     from exsr_torch.models.rrdb_fast import (pack_grouped_params,
                                              rrdbnet_apply_fast)
+    from exsr_torch.ops.kernels.rrdb_block import rdb
     from exsr_torch.ops.kernels.sepfilter import sepfilter_edge
     from exsr_torch.ops.kernels.stage4 import stage4
 
@@ -179,7 +244,7 @@ def phase_main_path(cem, filt, device, name):
         return wrapped(packed, lr, z, margins, pre_pad=False)
 
     with torch.inference_mode():
-        sepfilter_edge.launches = stage4.launches = 0
+        sepfilter_edge.launches = stage4.launches = rdb.launches = 0
         serve(zs[0])  # warm-up: first use of every library and kernel
         torch.cuda.synchronize()
         outs, times = [], []
@@ -189,12 +254,11 @@ def phase_main_path(cem, filt, device, name):
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
         launches = {'sepfilter_edge': sepfilter_edge.launches,
-                    'stage4': stage4.launches}
+                    'stage4': stage4.launches, 'rdb': rdb.launches}
         forwards = 1 + len(zs)
-        check(launches['sepfilter_edge'] == 5 * forwards,
-              f'sepfilter launches {launches} over {forwards} forwards')
-        check(launches['stage4'] == 69 * forwards,
-              f'stage4 launches {launches} over {forwards} forwards')
+        check(launches == {'sepfilter_edge': 5 * forwards,
+                           'stage4': 69 * forwards, 'rdb': 0},
+              f'launches {launches} over {forwards} forwards')
 
         # CUDA-event time of the same forward, back to back
         ms_events = cuda_ms(serve, [(z,) for z in zs], 6)
@@ -209,6 +273,7 @@ def phase_main_path(cem, filt, device, name):
         distinct = (outs[0] - outs[1]).abs().max().item()
         check(distinct > 0, 'different Z gave the same output')
         profile = profile_forward(serve, zs[0])
+    grouped_out = outs[0]
     del outs
     torch.cuda.empty_cache()
     ms = sorted(times)[len(times) // 2]
@@ -221,6 +286,74 @@ def phase_main_path(cem, filt, device, name):
          img_per_s_events=1e3 * BATCH / ms_events, z_effect=distinct)
     emit('profile', **profile)
     emit('reference', **reference_check(net, cem, device))
+    return launches, forwards, (lr, zs, grouped_out)
+
+
+def phase_fused_path(cem, filt, device, name, inputs):
+    """The canonical RRDBNet with the fused trunk, CEM-wrapped, serving
+    the main path's requests on the same seeded weights."""
+    import torch
+    from exsr_torch.cem.cem import cem_wrap
+    from exsr_torch.models.rrdb import RRDBNet
+    from exsr_torch.ops.kernels.rrdb_block import rdb
+    from exsr_torch.ops.kernels.sepfilter import sepfilter_edge
+    from exsr_torch.ops.kernels.stage4 import stage4
+
+    lr, zs, grouped_out = inputs
+    net = RRDBNet(nf=64, nb=23, gc=32, upscale=SCALE, latent_channels=3,
+                  seed=0, dtype=torch.bfloat16, fused_trunk=True).to(device)
+    wrapped = cem_wrap(lambda _, x, z: net(x, z), filt, upscale=SCALE)
+    margins = cem.invalidity_margins_lr
+
+    def serve(z):
+        return wrapped(None, lr, z, margins, pre_pad=False)
+
+    with torch.inference_mode():
+        sepfilter_edge.launches = stage4.launches = rdb.launches = 0
+        serve(zs[0])  # warm-up, and the trunk's weights packed once
+        torch.cuda.synchronize()
+        outs, times = [], []
+        for z in zs:
+            t0 = time.perf_counter()
+            outs.append(serve(z))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        launches = {'sepfilter_edge': sepfilter_edge.launches,
+                    'stage4': stage4.launches, 'rdb': rdb.launches}
+        forwards = 1 + len(zs)
+        check(launches == {'sepfilter_edge': 5 * forwards, 'stage4': 0,
+                           'rdb': 69 * forwards},
+              f'fused launches {launches} over {forwards} forwards')
+        ms_events = cuda_ms(serve, [(z,) for z in zs], 6)
+        finite = all(bool(torch.isfinite(o).all()) for o in outs)
+        check(finite, 'non-finite fused output')
+        check(all(tuple(o.shape) == (BATCH, LR * SCALE, LR * SCALE, 3)
+                  for o in outs), 'fused output shape')
+        cons = max((filt.downscale(o) - lr)[:, margins:-margins,
+                                            margins:-margins].abs().max()
+                   .item() for o in outs)
+        check(cons < 5e-6, f'fused CEM consistency {cons} >= 5e-6')
+        distinct = (outs[0] - outs[1]).abs().max().item()
+        check(distinct > 0, 'different Z gave the same fused output')
+        # same weights and inputs through the grouped and the fused bf16
+        # trunks: they round in different places, so this is a number to
+        # read, not a check
+        vs_grouped = (outs[0] - grouped_out).abs()
+        profile = profile_forward(serve, zs[0])
+    del outs, net
+    torch.cuda.empty_cache()
+    ms = sorted(times)[len(times) // 2]
+    emit('fused_path', device=name, model='RRDBNet(fused_trunk=True)',
+         batch=BATCH, lr=LR, scale=SCALE, nb=23, nf=64, gc=32, nz=3,
+         trunk='bf16', cem='fp32', finite=finite, consistency_max=cons,
+         consistency_tol=5e-6, launches=launches, forwards=forwards,
+         request_ms=times, ms_per_forward=ms, img_per_s=1e3 * BATCH / ms,
+         ms_per_forward_events=ms_events,
+         img_per_s_events=1e3 * BATCH / ms_events, z_effect=distinct,
+         max_abs_diff_vs_grouped=vs_grouped.max().item(),
+         mean_abs_diff_vs_grouped=vs_grouped.mean().item())
+    emit('fused_profile', **profile)
+    emit('fused_reference', **fused_reference_check(cem, device))
     return launches, forwards
 
 
@@ -247,7 +380,8 @@ def profile_forward(serve, z):
                       and e.key != stall), key=lambda t: -t[1])
     total = sum(t[1] for t in kernels)
     ours = {k: sum(t[1] for t in kernels if k in t[0])
-            for k in ('sepfilter_edge_kernel', 'stage4_kernel')}
+            for k in ('sepfilter_edge_kernel', 'stage4_kernel',
+                      'rdb_kernel')}
     return {'device_us_total': total, 'wall_us': wall_us,
             'device_busy_share': total / wall_us,
             'host_waits_on_full_queue_us': sum(
@@ -284,12 +418,39 @@ def reference_check(net, cem, device):
             'max_abs_err': err, 'tol': 1e-4}
 
 
+def fused_reference_check(cem, device):
+    """The fused-trunk generator, full width, fp32, on a small input: the
+    kernels on the card against the plain versions on the CPU."""
+    import torch
+    from exsr_torch.cem.cem import cem_wrap
+    from exsr_torch.models.rrdb import RRDBNet
+    net = RRDBNet(nf=64, nb=23, gc=32, upscale=SCALE, latent_channels=3,
+                  seed=0, fused_trunk=True)
+    gen = torch.Generator().manual_seed(4)
+    lr = torch.rand(2, 16, 16, 3, generator=gen)
+    z = torch.rand(2, 64, 64, 3, generator=gen) * 2 - 1
+    outs = {}
+    for dev in ('cpu', device):
+        net.to(dev)
+        wrapped = cem_wrap(lambda _, x, zz: net(x, zz),
+                           cem.device_filters(3, device=dev), upscale=SCALE)
+        with torch.inference_mode():
+            outs[str(dev)] = wrapped(None, lr.to(dev), z.to(dev),
+                                     cem.invalidity_margins_lr,
+                                     pre_pad=True).cpu()
+    err = (outs['cpu'] - outs[str(device)]).abs().max().item()
+    # fp32 through ~350 convs summed in another order on each side
+    check(err < 1e-4, f'fused card vs CPU max error {err} >= 1e-4')
+    return {'shape': [2, 16, 16, 3], 'dtype': 'fp32', 'pre_pad': True,
+            'max_abs_err': err, 'tol': 1e-4}
+
+
 def phase_serving():
     import torch
     from exsr_torch.apps.eval_sr import bucketed_sweep, build_model
     from exsr_torch.ops.kernels.sepfilter import sepfilter_edge
     from exsr_torch.ops.kernels.stage4 import stage4
-    cem, forward = build_model(SCALE)
+    cem, forward = build_model(SCALE, dtype=torch.bfloat16)
     gen = torch.Generator().manual_seed(3)
     lr = torch.rand(1, 64, 64, 3, generator=gen)
     zs = [torch.full((1, 256, 256, 3), v) for v in (-1.0, -0.5, 0.0, 0.5,
@@ -309,7 +470,8 @@ def phase_serving():
         check(o.device.type == 'cuda' and bool(torch.isfinite(o).all()),
               'finite CUDA output')
         check(0.0 <= o.min().item() and o.max().item() <= 1.0, 'clip')
-    emit('serving', entry='exsr_torch.apps.eval_sr.build_model(4)',
+    emit('serving',
+         entry='exsr_torch.apps.eval_sr.build_model(4, dtype=bfloat16)',
          sweep=len(zs), lr=64, pre_pad=True,
          margins_lr=cem.invalidity_margins_lr, launches=launches,
          ms_first_call=ms)
@@ -348,25 +510,38 @@ def main() -> int:
     cem = CEM.create(CEMConf(scale_factor=SCALE))
     filt = cem.device_filters(3, device=device)
     kern = phase_kernels(filt, device)
-    launches, forwards = phase_main_path(cem, filt, device, name)
+    launches, forwards, inputs = phase_main_path(cem, filt, device, name)
+    fused_launches, fused_forwards = phase_fused_path(cem, filt, device,
+                                                      name, inputs)
+    del inputs
     phase_serving()
 
-    # launches: the main path's total over its forwards
-    common = {'route': 'cuda', 'library_ms': None, 'forwards': forwards}
+    # launches: the total over the forwards of the path that runs the
+    # kernel (the main path; the fused path for rdb)
+    common = {'route': 'cuda', 'library_ms': None}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'shape')
     summary = [
         {'name': 'sepfilter_edge', **common,
          'source': 'exsr_torch/csrc/sepfilter.cu',
          'replaces': 'exsr/ops/pallas/sepfilter.py:76',
+         'path': 'main', 'forwards': forwards,
          'launches': launches['sepfilter_edge'],
          'launches_per_forward': launches['sepfilter_edge'] // forwards,
          **{k: kern['sepfilter_hr'][k] for k in keys}},
         {'name': 'stage4', **common,
          'source': 'exsr_torch/csrc/stage4.cu',
          'replaces': 'exsr/ops/pallas/stage4.py:82',
+         'path': 'main', 'forwards': forwards,
          'launches': launches['stage4'],
          'launches_per_forward': launches['stage4'] // forwards,
          **{k: kern['stage4_bf16'][k] for k in keys}},
+        {'name': 'rdb', **common,
+         'source': 'exsr_torch/csrc/rdb.cu',
+         'replaces': 'exsr/ops/pallas/rrdb_block.py:145',
+         'path': 'fused', 'forwards': fused_forwards,
+         'launches': fused_launches['rdb'],
+         'launches_per_forward': fused_launches['rdb'] // fused_forwards,
+         **{k: kern['rdb_bf16'][k] for k in keys}},
     ]
     print(json.dumps({'kernels': summary}))
     print(smi)

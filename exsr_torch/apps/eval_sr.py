@@ -17,14 +17,15 @@ from exsr_torch.utils.serve import best_bucket, pad_batch
 
 
 def build_model(scale: int, nb: int = 23, latent_channels: int = 3,
-                nf: int = 64, device=None, dtype=torch.bfloat16, *,
+                nf: int = 64, device=None, dtype=torch.float32, *,
                 params=None, checkpoint: str | None = None):
     """Build the CEM and the serving forward: ``(cem, forward)``.
 
     ``forward(lr, z_hr)`` takes NHWC ``lr`` ``[N, h, w, 3]`` and
     ``z_hr`` ``[N, h*scale, w*scale, latent_channels]`` (arrays or
     tensors) and returns the CEM-wrapped output clipped to [0, 1], as an
-    fp32 tensor on ``device``.  It runs the grouped trunk in ``dtype`` with
+    fp32 tensor on ``device``.  It runs the grouped trunk in ``dtype`` (fp32
+    by default, as ``exsr``'s ``build_model``; bf16 for fast serving) with
     the stage-4 epilogue kernel and the fp32 CEM chain through the
     separable filter kernel, with the inputs replicate-padded by the CEM's
     invalidity margins (``pre_pad``).  Weights are ``params`` (the port's

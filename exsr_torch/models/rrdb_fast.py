@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from exsr_torch.ops.filters import (bilinear_resize, nearest_upsample,
                                     to_nchw, to_nhwc)
+from exsr_torch.ops.kernels.rrdb_block import mul_in_dtype
 from exsr_torch.ops.kernels.stage4 import stage4
 
 _CL = torch.channels_last
@@ -171,7 +172,7 @@ def rrdb_trunk_fast(packed, lr, z_hr=None, *, dtype=torch.bfloat16):
         o = _rdb_grouped(t, z_lr, bp['rdb1'])
         o = _rdb_grouped(o, z_lr, bp['rdb2'])
         o = _rdb_grouped(o, z_lr, bp['rdb3'])
-        t = o * 0.2 + t
+        t = mul_in_dtype(o, 0.2) + t
     tc = rest['trunk_conv']
     t_in = torch.cat([z_lr, t], -1) if z_lr is not None else t
     return fea + _conv(t_in, tc['weight'], tc['bias'])

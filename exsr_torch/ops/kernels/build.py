@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / 'csrc'
 BUILD_DIR = (Path(__file__).resolve().parents[3] / 'build'
              / 'exsr_torch_kernels')
-SOURCES = ('sepfilter', 'stage4')
+SOURCES = ('sepfilter', 'stage4', 'rdb')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

@@ -13,6 +13,7 @@ import torch
 from exsr_torch.apps.eval_sr import build_model
 from exsr_torch.cem.cem import CEM, CEMConf
 from exsr_torch.models.rrdb import RRDBNet
+from exsr_torch.ops.kernels import rrdb_block as K
 from exsr_torch.ops.kernels.sepfilter import (sepfilter_edge,
                                               sepfilter_edge_plain)
 from exsr_torch.ops.kernels.stage4 import stage4, stage4_plain
@@ -75,11 +76,113 @@ def test_stage4_kernel_matches_plain(cuda, dtype, h, w, gc, nf):
                                rtol=0 if dtype == torch.float32 else tol)
 
 
+def _rdb_weights(gen, nf, gc, nz, dtype, device):
+    """Random fp32 RDB parameters (kaiming fan-in x 0.5, nonzero biases),
+    packed for ``dtype``."""
+    ws, bs = [], []
+    for i in range(5):
+        cin, cout = nz + nf + i * gc, (gc if i < 4 else nf)
+        ws.append(_rand(gen, cout, cin, 3, 3, device=device)
+                  * 0.5 * (2 / (9 * cin)) ** 0.5)
+        bs.append(_rand(gen, cout, device=device) * 0.1)
+    return K.pack_rdb(ws, bs, dtype)
+
+
+def assert_rdb_close(out, ref):
+    """fp32: 1e-5.  bf16: |out - ref| <= 2^-7 |ref| + 2^-9.  The kernel and
+    the plain version sum in fp32 in different orders, so a value may round
+    to the other bf16 neighbour: in the output (one ulp, 2^-7 relative at
+    most) or in an intermediate c_i, whose flip reaches the output diluted
+    but can exceed one ulp of an output that is close to zero."""
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    else:
+        diff = (out.float() - ref.float()).abs()
+        excess = diff - (2 ** -7 * ref.float().abs() + 2 ** -9)
+        assert excess.max().item() <= 0, diff.max().item()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('nf,gc', [(16, 8), (64, 32)])
+@pytest.mark.parametrize('h,w', [(7, 19), (40, 36)])
+def test_rdb_kernel_matches_plain(cuda, dtype, nf, gc, h, w):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    wts = _rdb_weights(gen, nf, gc, 3, dtype, cuda)
+    x = _rand(gen, 2, h, w, nf, dtype=dtype)
+    z = (torch.rand(2, h, w, 3, generator=gen, device=cuda) * 2 - 1) \
+        .to(dtype)
+    x0 = _rand(gen, 2, h, w, nf, dtype=dtype)
+    before = K.rdb.launches
+    out = K.rdb(x, z, wts)
+    out_x0 = K.rdb(x, z, wts, x0=x0)
+    torch.cuda.synchronize()
+    assert K.rdb.launches == before + 2
+    assert_rdb_close(out, K.rdb_plain(x, z, wts))
+    # the fused outer residual is the plain elementwise op on the kernel's
+    # own RDB output, bit for bit
+    assert torch.equal(out_x0, K.mul_in_dtype(out, 0.2) + x0)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_rrdb_block_on_cuda_matches_cpu(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    w3 = [_rdb_weights(gen, 64, 32, 3, torch.float32, cuda)
+          for _ in range(3)]
+    x = _rand(gen, 2, 21, 13, 64)
+    z = torch.rand(2, 21, 13, 3, generator=gen, device=cuda) * 2 - 1
+    outs = {}
+    for dev in ('cpu', cuda):
+        w3d = [K.pack_rdb([k.permute(3, 2, 0, 1).to(dev) for k in w.kernels],
+                          [b.to(dev) for b in w.biases], dtype) for w in w3]
+        xd, zd = x.to(dev, dtype), z.to(dev, dtype)
+        outs[str(dev)] = (K.rrdb_block(xd, zd, w3d).cpu(),
+                          K.rrdb_block_chained(xd, zd, w3d).cpu())
+    assert torch.equal(*outs[str(cuda)])
+    out, ref = outs[str(cuda)][0].float(), outs['cpu'][0].float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    else:
+        # three RDBs chained: a bf16 rounding flipped by the fp32 summation
+        # order in one feeds the next, so two ulps (2^-6 relative) plus an
+        # absolute term for outputs close to zero
+        assert ((out - ref).abs() - 2 ** -6 * (ref.abs() + 1)).max() <= 0
+
+
+def test_fused_rrdbnet_on_cuda_matches_cpu(cuda):
+    """RRDBNet(fused_trunk=True) at nb 2, fp32: 3 rdb launches per block."""
+    rng = np.random.default_rng(7)
+    lr = torch.from_numpy(rng.uniform(size=(2, 20, 20, 3)).astype('f'))
+    z = torch.from_numpy(rng.uniform(-1, 1, size=(2, 80, 80, 3)).astype('f'))
+    net = RRDBNet(nf=16, nb=2, gc=8, latent_channels=3, seed=8,
+                  fused_trunk=True)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith('bias'):  # nonzero biases
+                p.add_(0.01)
+        ref = net(lr, z)
+        net.to(cuda)
+        K.rdb.launches = 0
+        out = net(lr.to(cuda), z.to(cuda))
+        torch.cuda.synchronize()
+    assert K.rdb.launches == 3 * 2
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=0)
+
+
 def test_kernels_refuse_gradients(cuda):
     x = torch.rand(1, 8, 8, 3, device=cuda, requires_grad=True)
     k = torch.ones(3, device=cuda)
     with pytest.raises(NotImplementedError, match='backward'):
         sepfilter_edge(x, k, k)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    wts = _rdb_weights(gen, 16, 8, 3, torch.float32, cuda)
+    xr = torch.rand(1, 8, 8, 16, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match='backward'):
+        K.rdb(xr, torch.rand(1, 8, 8, 3, device=cuda), wts)
+    net = RRDBNet(nf=16, nb=1, gc=8, latent_channels=3,
+                  fused_trunk=True).to(cuda)
+    with pytest.raises(NotImplementedError, match='backward'):
+        net(torch.rand(1, 8, 8, 3, device=cuda),
+            torch.rand(1, 32, 32, 3, device=cuda))
 
 
 def test_cem_chain_on_cuda_matches_cpu_and_is_consistent(cuda):

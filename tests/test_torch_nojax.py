@@ -23,6 +23,7 @@ def _modules():
 def test_every_module_imports_with_jax_and_exsr_blocked():
     mods = list(_modules())
     assert 'exsr_torch.ops.kernels.stage4' in mods
+    assert 'exsr_torch.ops.kernels.rrdb_block' in mods
     blocked = '; '.join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
     code = (f'import sys; {blocked}; import importlib; '
             f'[importlib.import_module(m) for m in {mods!r}]; '
