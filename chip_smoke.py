@@ -7,10 +7,13 @@ Run from the repository root on a machine with an NVIDIA H100::
 Phases, one JSON line each:
 
 1. environment: torch and CUDA versions, nvcc, the card and its power limit;
-2. build: every hand-written kernel, compiled from ``exsr_torch/csrc``;
+2. build: every hand-written kernel, compiled from ``exsr_torch/csrc``
+   (ptxas's registers, spills and any "wgmma ... serialized" warning);
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes (batch 16), with its time, the plain version's time and
-   the card's lower bound for the same work;
+   the card's lower bound for the same work; for the fused RDB also the
+   time of the port's unfused module on the same block (five cuDNN convs:
+   ``library_chain_ms``) and the TFLOP/s it executes, halo included;
 4. main path: the CEM-wrapped 23-block generator forward at full width
    (LR 128 -> HR 512, x4, bf16 trunk, fp32 CEM, seeded weights) serving
    three requests; CEM consistency, launch counts, time per forward, a
@@ -160,7 +163,9 @@ def phase_kernels(filt, device):
 def kernel_rdb(gen, device):
     """Kernel 3: one residual dense block at LR 128, nf 64, gc 32, nz 3."""
     import torch
-    from exsr_torch.ops.kernels.rrdb_block import pack_rdb, rdb, rdb_plain
+    from exsr_torch.models.rrdb import ResidualDenseBlock
+    from exsr_torch.ops.kernels.rrdb_block import (executed_flops_bf16,
+                                                   pack_rdb, rdb, rdb_plain)
     nf, gc, nz = 64, 32, 3
     cins = [nz + nf + i * gc for i in range(5)]
     couts = [gc] * 4 + [nf]
@@ -208,6 +213,25 @@ def kernel_rdb(gen, device):
             shape=[BATCH, LR, LR, nf], dtype=tag, max_abs_err=err, tol=tol,
             share_differing=differ, ms=ms, plain_ms=plain, bound_ms=bms,
             bound_by=by, tflops=flops / ms / 1e9)
+        if dtype == torch.bfloat16:
+            # A yardstick, not one call: the port's unfused module on the
+            # same inputs and weights (five cuDNN bf16 convs on the growing
+            # concat, leaky_relu, residual).  The fused path never runs it.
+            chain = ResidualDenseBlock(nf, gc, nz).to(device)
+            with torch.no_grad():
+                for i in range(5):
+                    conv = getattr(chain, f'conv{i}')
+                    conv.weight.copy_(ws[i])
+                    conv.bias.copy_(bs[i])
+            chain = chain.bfloat16().to(memory_format=torch.channels_last)
+            with torch.inference_mode():
+                chain_sets = [(x.permute(0, 3, 1, 2), z.permute(0, 3, 1, 2))
+                              for x, z, _ in sets]
+                results[f'rdb_{tag}'].update(
+                    library_chain_ms=cuda_ms(chain, chain_sets, iters),
+                    executed_tflops=executed_flops_bf16(BATCH, LR, LR, nf, gc)
+                    / ms / 1e9)
+            del chain, chain_sets
         emit('kernel', name=f'rdb[{tag}]', **results[f'rdb_{tag}'])
         del sets, out, ref, diff, w
     torch.cuda.empty_cache()
@@ -505,7 +529,7 @@ def main() -> int:
          built={k: v['seconds'] for k, v in report.items()},
          ptxas=[ln.strip() for v in report.values()
                 for ln in v['ptxas'].splitlines()
-                if 'registers' in ln or 'spill' in ln])
+                if 'registers' in ln or 'spill' in ln or 'C75' in ln])
 
     cem = CEM.create(CEMConf(scale_factor=SCALE))
     filt = cem.device_filters(3, device=device)

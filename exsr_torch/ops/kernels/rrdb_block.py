@@ -32,11 +32,15 @@ On the H100 the RDB is bound by operations (489,600 flops per pixel at
 nf 64, gc 32 against 262 bytes in bf16).  The CUDA kernel
 (``exsr_torch/csrc/rdb.cu``) keeps every intermediate in shared memory: one
 block per output tile stages ``[z, x]`` with a 5-pixel halo and computes
-each conv on the tile grown by the halo the later convs need, on the tensor
-cores (``mma.sync``, weights streamed through shared memory) in bf16 and on
-fp32 FMA in fp32.  The wrapper runs
-:func:`rdb_plain` for CPU tensors and launches the kernel for CUDA tensors;
-there is no backward.
+each conv on the tile grown by the halo the later convs need.  In bf16 the
+products run on the tensor cores with ``wgmma``: two consumer warpgroups
+read the pixels with ``ldmatrix`` and the weights through a shared-memory
+descriptor from a ring that a producer thread fills with bulk copies, slot
+by slot under ``mbarrier``s.  In fp32 (reference checks only) they run on
+fp32 FMA.  The bf16 kernel is instantiated for ``gc <= 32`` and ``nf`` 16,
+32 or 64; :func:`rdb` raises ``NotImplementedError`` for other widths on
+CUDA.  The wrapper runs :func:`rdb_plain` for CPU tensors and launches the
+kernel for CUDA tensors; there is no backward.
 """
 from __future__ import annotations
 
@@ -50,6 +54,9 @@ from exsr_torch.ops.filters import to_nchw, to_nhwc
 from exsr_torch.ops.kernels import build
 
 Z_SLOTS = 16  # the kernel's channel slots for z (nz <= 16), zero-padded
+# padded output widths the bf16 kernel instantiates wgmma for: convs 0..3
+# (gc rounded up to 16) and conv 4 (nf)
+BF16_GC_WIDTHS, BF16_NF_WIDTHS = (16, 32), (16, 32, 64)
 SMEM_LIMIT = 227 * 1024
 
 
@@ -104,11 +111,16 @@ def kernel_layout(kernels, biases, nf: int, gc: int, nz: int, dtype):
     Conv i reads ``K_i = 16 + nf + i * gcp`` input slots (z zero-padded to
     16, x, then each earlier ``c_j`` padded to ``gcp``) and writes
     ``N_i = gcp`` (``nf`` for conv 4) outputs; padding is zero.  Per conv,
-    fp32 weights are ``[tap][K_i][N_i]``; bf16 weights are in ``mma``
-    B-fragment order ``[tap][K_i/16][N_i/8][g][t][half][pair]``, so lane
-    ``4g + t`` of a warp reads, in one 8-byte load,
-    ``w[k0+2t : k0+2t+2, n0+g]`` and ``w[k0+8+2t : k0+8+2t+2, n0+g]``.
-    Biases are fp32 ``[N_i]`` per conv.
+    fp32 weights are ``[tap][K_i][N_i]``.  bf16 weights are in the order
+    the ``wgmma`` B descriptor reads, ``[tap][K_i/16][N_i/8][k half][n % 8]
+    [k % 8]``: a (tap, 16-channel) step is ``N_i`` x 16 values in 8 x 8
+    core matrices of 128 contiguous bytes with K innermost (no swizzle);
+    the two core matrices along K lie 128 bytes apart (the descriptor's
+    leading byte offset) and the next 8 outputs 256 bytes on (its stride
+    byte offset).  Within a step, ``w[k, n]`` is element
+    ``(n // 8) * 128 + (k // 8) * 64 + (n % 8) * 8 + k % 8``; a step is
+    contiguous, so the kernel's producer streams whole steps with 1-D bulk
+    copies.  Biases are fp32 ``[N_i]`` per conv.
     """
     gcp = -(-gc // 16) * 16
     ws, bs = [], []
@@ -119,8 +131,9 @@ def kernel_layout(kernels, biases, nf: int, gc: int, nz: int, dtype):
         idx = torch.tensor(_slots(nz, nf, gc, gcp, cin), device=k.device)
         w[:, idx, :cout] = k.reshape(9, cin, cout).to(dtype)
         if dtype == torch.bfloat16:
-            w = w.reshape(9, kk // 16, 2, 4, 2, nn_ // 8, 8) \
-                .permute(0, 1, 5, 6, 3, 2, 4)
+            # (tap, kc, k half, k % 8, n // 8, n % 8) -> descriptor order
+            w = w.reshape(9, kk // 16, 2, 8, nn_ // 8, 8) \
+                .permute(0, 1, 4, 2, 5, 3)
         ws.append(w.reshape(-1))
         bp = torch.zeros(nn_, dtype=torch.float32, device=k.device)
         bp[:cout] = b
@@ -218,6 +231,42 @@ def _check(x, z, w: RdbWeights, x0) -> None:
                          f'{tuple(x.shape)}')
 
 
+def require_kernel_widths(w: RdbWeights) -> None:
+    """Raise ``NotImplementedError`` unless the CUDA kernel is built for
+    these weights' widths: nf a multiple of 16 and 1 <= nz <= 16; in bf16
+    also gc <= 32 (convs 0..3 write 16 or 32 padded outputs) and nf 16, 32
+    or 64 (conv 4), the widths ``wgmma`` is instantiated for."""
+    if w.nf % 16 or not 1 <= w.nz <= Z_SLOTS:
+        raise NotImplementedError(
+            f'the CUDA kernel takes nf a multiple of 16 and 1 <= nz <= '
+            f'{Z_SLOTS}, got nf={w.nf} nz={w.nz}')
+    if w.dtype == torch.bfloat16 and (w.gcp not in BF16_GC_WIDTHS
+                                      or w.nf not in BF16_NF_WIDTHS):
+        raise NotImplementedError(
+            f'the bf16 CUDA kernel is built for gc <= {BF16_GC_WIDTHS[-1]} '
+            f'and nf in {BF16_NF_WIDTHS}, got nf={w.nf} gc={w.gc}')
+
+
+BF16_TILE = (8, 16)  # the bf16 kernel's output tile (rdb.cu, Tile)
+
+
+def executed_flops_bf16(b: int, h: int, wd: int, nf: int, gc: int) -> int:
+    """Flops the bf16 CUDA kernel executes on the tensor cores for one
+    call, everything it recomputes or pads included: per output tile, conv
+    i runs ceil(region pixels / 64) units of 64 pixels on the tile grown by
+    4 - i pixels a side, over K_i = 16 + nf + i * gcp input slots (z padded
+    to 16, gc to gcp) and N_i padded outputs, nine taps each."""
+    th, tw = BF16_TILE
+    gcp = -(-gc // 16) * 16
+    tiles = b * -(-h // th) * -(-wd // tw)
+    per_tile = 0
+    for i in range(5):
+        units = -(-(th + 8 - 2 * i) * (tw + 8 - 2 * i) // 64)
+        per_tile += 2 * 9 * units * 64 * (Z_SLOTS + nf + i * gcp) \
+            * (gcp if i < 4 else nf)
+    return tiles * per_tile
+
+
 def rdb(x, z, w: RdbWeights, x0=None):
     """One residual dense block; with ``x0``, also the outer RRDB residual
     ``out * dtype(0.2) + x0``.  A CPU tensor goes to :func:`rdb_plain`; a
@@ -231,10 +280,7 @@ def rdb(x, z, w: RdbWeights, x0=None):
             t is not None and t.requires_grad for t in (x, z, x0)):
         raise NotImplementedError('rdb has no backward on CUDA')
     b, h, wd, nf = x.shape
-    if nf % 16 or not 1 <= w.nz <= Z_SLOTS:
-        raise NotImplementedError(
-            f'the CUDA kernel takes nf a multiple of 16 and 1 <= nz <= '
-            f'{Z_SLOTS}, got nf={nf} nz={w.nz}')
+    require_kernel_widths(w)
     is_bf16 = int(x.dtype == torch.bfloat16)
     # pixel stride in shared memory: bank-conflict padding (see rdb.cu)
     cs = Z_SLOTS + nf + 4 * w.gcp + (8 if is_bf16 else 1)
@@ -244,7 +290,8 @@ def rdb(x, z, w: RdbWeights, x0=None):
         raise ValueError(f'nf={nf} gc={w.gc} needs {smem} bytes of shared '
                          'memory, more than a block has')
     out = torch.empty_like(x)
-    if any(t.data_ptr() % 16 for t in (x, out, w.packed)):  # cp.async
+    # cp.async and the bulk copies move 16-byte pieces
+    if any(t.data_ptr() % 16 for t in (x, out, w.packed)):
         raise ValueError('x and the packed weights must be 16-byte aligned')
     err = lib.exsr_rdb(
         x.data_ptr(), z.data_ptr(), x0.data_ptr() if x0 is not None else None,

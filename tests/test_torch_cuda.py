@@ -103,24 +103,46 @@ def assert_rdb_close(out, ref):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('nf,gc', [(16, 8), (64, 32)])
-@pytest.mark.parametrize('h,w', [(7, 19), (40, 36)])
-def test_rdb_kernel_matches_plain(cuda, dtype, nf, gc, h, w):
+@pytest.mark.parametrize('nf,gc', [(16, 8), (32, 16), (64, 32)])
+@pytest.mark.parametrize('b,h,w', [(2, 7, 19), (2, 40, 36), (3, 9, 70),
+                                   (2, 3, 5)])
+def test_rdb_kernel_matches_plain(cuda, dtype, nf, gc, b, h, w):
+    """Shapes that do not divide the 8 x 16 tile, one wider than a tile
+    with a ragged edge and three images, one smaller than a tile.  The
+    bf16 kernel runs three times on the same inputs and must repeat itself
+    bit for bit: a missing fence or barrier shows on some runs only."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     wts = _rdb_weights(gen, nf, gc, 3, dtype, cuda)
-    x = _rand(gen, 2, h, w, nf, dtype=dtype)
-    z = (torch.rand(2, h, w, 3, generator=gen, device=cuda) * 2 - 1) \
+    x = _rand(gen, b, h, w, nf, dtype=dtype)
+    z = (torch.rand(b, h, w, 3, generator=gen, device=cuda) * 2 - 1) \
         .to(dtype)
-    x0 = _rand(gen, 2, h, w, nf, dtype=dtype)
+    x0 = _rand(gen, b, h, w, nf, dtype=dtype)
     before = K.rdb.launches
     out = K.rdb(x, z, wts)
     out_x0 = K.rdb(x, z, wts, x0=x0)
     torch.cuda.synchronize()
     assert K.rdb.launches == before + 2
-    assert_rdb_close(out, K.rdb_plain(x, z, wts))
+    ref = K.rdb_plain(x, z, wts)
+    assert_rdb_close(out, ref)
     # the fused outer residual is the plain elementwise op on the kernel's
     # own RDB output, bit for bit
     assert torch.equal(out_x0, K.mul_in_dtype(out, 0.2) + x0)
+    if dtype == torch.bfloat16:
+        for _ in range(2):
+            again = K.rdb(x, z, wts)
+            assert_rdb_close(again, ref)
+            assert torch.equal(again, out)
+
+
+def test_rdb_kernel_raises_for_a_width_it_is_not_built_for(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    wts = _rdb_weights(gen, 16, 40, 3, torch.bfloat16, cuda)
+    x = _rand(gen, 1, 8, 8, 16, dtype=torch.bfloat16)
+    z = torch.zeros(1, 8, 8, 3, dtype=torch.bfloat16, device=cuda)
+    before = K.rdb.launches
+    with pytest.raises(NotImplementedError, match='gc'):
+        K.rdb(x, z, wts)
+    assert K.rdb.launches == before
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])

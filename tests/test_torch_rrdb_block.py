@@ -120,23 +120,29 @@ def test_pack_matches_exsr_flattening(dtype):
                    torch.bfloat16)
 
 
-def _decode_fragments(flat, k, n):
-    """Undo the bf16 B-fragment order with mma.m16n8k16's mapping: lane
-    4g + t, register r, element e hold w[16 kc + 8 r + 2 t + e, 8 nt + g]."""
-    frag = flat.float().reshape(9, k // 16, n // 8, 32, 2, 2)
-    w = torch.zeros(9, k, n)
-    for lane in range(32):
-        g, t = divmod(lane, 4)
-        for r in range(2):
-            for e in range(2):
-                rows = torch.arange(k // 16) * 16 + 8 * r + 2 * t + e
-                cols = torch.arange(n // 8) * 8 + g
-                w[:, rows[:, None], cols[None, :]] = frag[:, :, :, lane, r, e]
-    return w
+# the wgmma B descriptor the kernel builds (rdb.cu, weight_desc): K-major,
+# no swizzle, leading byte offset 128, stride byte offset 256
+DESC_LBO, DESC_SBO = 128, 256
+
+
+def _read_through_descriptor(flat, k, n):
+    """Read w[tap, k, n] back as the tensor cores address it: steps of 16
+    channels, contiguous, N * 32 bytes each; inside a step, 8 x 8 core
+    matrices of 128 bytes whose rows (one output's 8 channels) are 16 bytes
+    apart, LBO between the two core matrices along K, SBO between groups of
+    8 outputs."""
+    step_bytes = n * 32
+    kk, nn_ = torch.meshgrid(torch.arange(k), torch.arange(n), indexing='ij')
+    byte = ((kk // 16) * step_bytes + (nn_ // 8) * DESC_SBO
+            + ((kk % 16) // 8) * DESC_LBO + (nn_ % 8) * 16 + (kk % 8) * 2)
+    taps = torch.arange(9)[:, None, None] * (k // 16) * step_bytes
+    idx = (taps + byte[None]) // 2
+    assert idx.unique().numel() == 9 * k * n  # a bijection onto the buffer
+    return flat.float()[idx]
 
 
 @pytest.mark.parametrize('dtype', ['fp32', 'bf16'])
-@pytest.mark.parametrize('nf,gc', [(16, 8), (32, 16)])
+@pytest.mark.parametrize('nf,gc', [(16, 8), (32, 16), (64, 32)])
 def test_kernel_layout_holds_every_weight_in_its_slot(dtype, nf, gc):
     rng = np.random.default_rng(5)
     tree = _rdb_tree(rng, nf=nf, gc=gc)
@@ -147,7 +153,7 @@ def test_kernel_layout_holds_every_weight_in_its_slot(dtype, nf, gc):
     for c in range(5):
         kk, nn_ = 16 + nf + c * gcp, (gcp if c < 4 else nf)
         flat = w.packed[off:off + 9 * kk * nn_]
-        dense = (_decode_fragments(flat, kk, nn_) if tx == torch.bfloat16
+        dense = (_read_through_descriptor(flat, kk, nn_) if tx == torch.bfloat16
                  else flat.reshape(9, kk, nn_))
         ref = torch.zeros(9, kk, nn_)
         src = w.kernels[c].float().reshape(9, -1, w.kernels[c].shape[3])
@@ -162,6 +168,27 @@ def test_kernel_layout_holds_every_weight_in_its_slot(dtype, nf, gc):
         assert not bias[cout:].any()
         off, boff = off + 9 * kk * nn_, boff + nn_
     assert off == w.packed.numel() and boff == w.packed_bias.numel()
+
+
+@pytest.mark.parametrize('nf,gc,dtype,ok', [
+    (64, 32, 'bf16', True), (16, 8, 'bf16', True), (32, 16, 'bf16', True),
+    (16, 40, 'bf16', False),   # convs 0..3 would write 48 padded outputs
+    (48, 8, 'bf16', False),    # conv 4 would write 48 outputs
+    (16, 40, 'fp32', True),    # the fp32 kernel takes any padded gc
+    (24, 8, 'fp32', False)])   # nf must fill 16-channel slots
+def test_wrapper_raises_for_widths_the_kernel_is_not_built_for(nf, gc, dtype,
+                                                               ok):
+    w = _pack(_rdb_tree(np.random.default_rng(12), nf=nf, gc=gc),
+              DTYPES[dtype][0])
+    if ok:
+        K.require_kernel_widths(w)
+    else:
+        with pytest.raises(NotImplementedError, match='nf'):
+            K.require_kernel_widths(w)
+    # the plain version, which CPU tensors take, has no such limit
+    x = torch.zeros(1, 4, 4, nf, dtype=w.dtype)
+    assert K.rdb(x, torch.zeros(1, 4, 4, NZ, dtype=w.dtype), w).shape \
+        == x.shape
 
 
 def test_mul_in_dtype_rounds_the_scale_as_jax():
@@ -277,3 +304,17 @@ def test_build_model_default_dtype_matches_exsr():
     z = rng.uniform(-1, 1, size=(1, 96, 96, 3)).astype(np.float32)
     np.testing.assert_allclose(t_fwd(lr, z).numpy(), j_fwd(lr, z), atol=1e-5,
                                rtol=0)
+
+
+def test_executed_flops_counts_halo_padding_and_ragged_units():
+    """nf 64, gc 32 on one 8 x 16 tile: conv i runs 6, 5, 4, 3, 2 units of
+    64 pixels over K = 80 + 32 i slots and 32 (conv 4: 64) outputs."""
+    per_tile = 2 * 9 * 64 * (6 * 80 * 32 + 5 * 112 * 32 + 4 * 144 * 32
+                             + 3 * 176 * 32 + 2 * 208 * 64)
+    assert K.executed_flops_bf16(1, 8, 16, 64, 32) == per_tile
+    # ragged images round up to whole tiles; gc pads to 16 slots
+    assert K.executed_flops_bf16(2, 9, 17, 64, 32) == 2 * 4 * per_tile
+    assert K.executed_flops_bf16(1, 8, 16, 64, 24) == per_tile
+    useful = 2 * 9 * 128 * sum((3 + 64 + 32 * i) * (32 if i < 4 else 64)
+                               for i in range(5))
+    assert 1.7 < per_tile / useful < 1.8
