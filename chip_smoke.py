@@ -11,7 +11,9 @@ Phases, one JSON line each:
    (ptxas's registers, spills and any "wgmma ... serialized" warning);
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes (batch 16), with its time, the plain version's time and
-   the card's lower bound for the same work; for the fused RDB also the
+   the card's lower bound for the same work; for the stage-4 epilogue
+   also its bytes per second and the time of the same epilogue as cuDNN
+   conv plus elementwise ops (``library_chain_ms``); for the fused RDB the
    time of the port's unfused module on the same block (five cuDNN convs:
    ``library_chain_ms``) and the TFLOP/s it executes, halo included;
 4. main path: the CEM-wrapped 23-block generator forward at full width
@@ -152,12 +154,41 @@ def phase_kernels(filt, device):
         tag = 'bf16' if dtype == torch.bfloat16 else 'fp32'
         results[f'stage4_{tag}'] = dict(
             shape=[BATCH, LR, LR, nf], dtype=tag, max_abs_err=err, tol=tol,
-            ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+            ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+            gbytes_per_s=nbytes / ms / 1e6)
+        if dtype == torch.bfloat16:
+            results[f'stage4_{tag}'].update(stage4_chain(args, ref))
         emit('kernel', name=f'stage4[{tag}]', **results[f'stage4_{tag}'])
         del c3, ps, x, out, ref, diff, args
     torch.cuda.empty_cache()
     results.update(kernel_rdb(gen, device))
     return results
+
+
+def stage4_chain(args, ref):
+    """A yardstick, not one call: the stage-4 epilogue as the grouped trunk
+    would run it without the kernel, on the same inputs (one cuDNN bf16
+    conv of c3 with b4, channels_last, then the four slice adds, the 0.2
+    scale and + x in bf16).  The port never runs it."""
+    import torch
+    import torch.nn.functional as F
+    c3, p0, p1, p2, p3, x, w4, b4 = args
+    nf = x.shape[-1]
+    w = w4.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    b = b4.to(c3.dtype)
+
+    def chain(c3, p0, p1, p2, p3, x):
+        conv = F.conv2d(c3.permute(0, 3, 1, 2), w, b, padding=1) \
+            .permute(0, 2, 3, 1)
+        acc = conv + p0[..., :nf]
+        for p in (p1, p2, p3):
+            acc = acc + p[..., :nf]
+        return acc * 0.2 + x
+
+    with torch.inference_mode():
+        err = (chain(*args[:6]).float() - ref.float()).abs().max().item()
+        ms = cuda_ms(chain, [args[:6]], 40)
+    return {'library_chain_ms': ms, 'library_chain_max_abs_err': err}
 
 
 def kernel_rdb(gen, device):

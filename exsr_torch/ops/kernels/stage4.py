@@ -13,11 +13,15 @@ fp32 accumulation; the scaled sum is cast to the dtype before ``x`` is
 added, as ``stage4.py:72-78`` does.
 
 On the H100 the function is bound by bytes (832 bytes per pixel in bf16
-against ~44 flops per byte).  The CUDA kernel (``exsr_torch/csrc/stage4.cu``)
-keeps the c3 tile with its zero halo and all of ``w4`` in shared memory and
-reads each partial, ``x`` and ``c3`` once and writes ``out`` once.  Its conv
-runs on fp32 FMA for now, which makes its own arithmetic, not the bytes,
-its limit; tensor-core products are later work.
+against ~44 flops per byte).  The bf16 CUDA kernel
+(``exsr_torch/csrc/stage4.cu``) runs one persistent block per SM over 8 x 8
+output tiles: producer warps bring each tile's inputs (``c3`` with its
+halo, the four nf-wide partial slices, ``x``) into a two-stage shared-memory
+ring by ``cp.async`` while consumer warps run the previous tile's conv on
+the tensor cores (``mma.sync``, fragments by ``ldmatrix``, ``w4`` staged
+once per block) and its epilogue.  Every input is read once and ``out``
+written once.  The fp32 kernel keeps an fp32 FMA conv (TF32 is off in the
+port).
 """
 from __future__ import annotations
 

@@ -56,14 +56,21 @@ def test_sepfilter_kernel_matches_plain(cuda, shape, kh, kw):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('h,w,gc,nf', [(40, 36, 32, 64), (7, 19, 8, 16)])
-def test_stage4_kernel_matches_plain(cuda, dtype, h, w, gc, nf):
+@pytest.mark.parametrize('gc', [8, 16, 32])
+@pytest.mark.parametrize('nf', [16, 48, 64])
+@pytest.mark.parametrize('b,h,w', [(2, 40, 36), (2, 7, 19), (3, 1, 1),
+                                   (3, 3, 130), (3, 129, 17)])
+def test_stage4_kernel_matches_plain(cuda, dtype, gc, nf, b, h, w):
     """fp32 to 1e-5; bf16 to one bf16 ulp (2^-7 relative), where fp32
-    summation order moves the scaled sum across a rounding boundary."""
+    summation order moves the scaled sum across a rounding boundary.
+    Shapes that do not divide the 8 x 8 tile, one pixel, three images.
+    The bf16 kernel runs three times on the same inputs and must repeat
+    itself bit for bit: a missing barrier or wait shows on some runs only.
+    """
     gen = torch.Generator(device=cuda).manual_seed(1)
-    c3 = _rand(gen, 2, h, w, gc, dtype=dtype)
-    ps = [_rand(gen, 2, h, w, nf + k * gc, dtype=dtype) for k in (4, 3, 2, 1)]
-    x = _rand(gen, 2, h, w, nf, dtype=dtype)
+    c3 = _rand(gen, b, h, w, gc, dtype=dtype)
+    ps = [_rand(gen, b, h, w, nf + k * gc, dtype=dtype) for k in (4, 3, 2, 1)]
+    x = _rand(gen, b, h, w, nf, dtype=dtype)
     w4 = (_rand(gen, 3, 3, gc, nf) * 0.1).to(dtype)
     b4 = _rand(gen, nf)
     before = stage4.launches
@@ -74,6 +81,24 @@ def test_stage4_kernel_matches_plain(cuda, dtype, h, w, gc, nf):
     tol = 1e-5 if dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                rtol=0 if dtype == torch.float32 else tol)
+    if dtype == torch.bfloat16:
+        for _ in range(2):
+            assert torch.equal(stage4(c3, *ps, x, w4, b4), out)
+
+
+def test_stage4_kernel_takes_gc_not_a_multiple_of_8(cuda):
+    """gc 6: c3 arrives in 4-byte copies and K is zero-padded to 16 in
+    shared memory; P widths are any multiples of 8."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    c3 = _rand(gen, 2, 9, 11, 6, dtype=torch.bfloat16)
+    ps = [_rand(gen, 2, 9, 11, 32 + 8 * k, dtype=torch.bfloat16)
+          for k in (4, 3, 2, 1)]
+    x = _rand(gen, 2, 9, 11, 32, dtype=torch.bfloat16)
+    w4 = (_rand(gen, 3, 3, 6, 32) * 0.1).bfloat16()
+    b4 = _rand(gen, 32)
+    out = stage4(c3, *ps, x, w4, b4).float()
+    ref = stage4_plain(c3, *ps, x, w4, b4).float()
+    torch.testing.assert_close(out, ref, atol=2 ** -7, rtol=2 ** -7)
 
 
 def _rdb_weights(gen, nf, gc, nz, dtype, device):
