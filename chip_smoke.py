@@ -11,11 +11,18 @@ Phases, one JSON line each:
    (ptxas's registers, spills and any "wgmma ... serialized" warning);
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes (batch 16), with its time, the plain version's time and
-   the card's lower bound for the same work; for the stage-4 epilogue
-   also its bytes per second and the time of the same epilogue as cuDNN
-   conv plus elementwise ops (``library_chain_ms``); for the fused RDB the
-   time of the port's unfused module on the same block (five cuDNN convs:
-   ``library_chain_ms``) and the TFLOP/s it executes, halo included;
+   the card's lower bound for the same work (every ``ms`` by CUDA events
+   around launches one by one); for the CEM filter's three entry points
+   (same-size, polyphase down, polyphase up with and without the combine,
+   ``exsr_torch.ops.kernels.measure.sepfilter_kernels``) also their
+   equality, bit for bit, with their composition through the same-size
+   kernel, the composition's time, their times as CUDA-graph replays
+   (``graph_ms``: a short kernel launched one by one waits on the host)
+   and ``CEMFilters.enforce`` alone on both routes; for the stage-4
+   epilogue also its bytes per second and the time of the same epilogue as
+   cuDNN conv plus elementwise ops (``library_chain_ms``); for the fused
+   RDB the time of the port's unfused module on the same block (five cuDNN
+   convs: ``library_chain_ms``) and the TFLOP/s it executes, halo included;
 4. main path: the CEM-wrapped 23-block generator forward at full width
    (LR 128 -> HR 512, x4, bf16 trunk, fp32 CEM, seeded weights) serving
    three requests; CEM consistency, launch counts, time per forward, a
@@ -37,15 +44,15 @@ repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
 import time
 
+from exsr_torch.ops.kernels.measure import (BF16_FLOPS, FP32_FLOPS,
+                                            bound_ms, cuda_ms,
+                                            sepfilter_kernels)
+
 LR, SCALE, BATCH = 128, 4, 16
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM published rates (dense)
-FP32_FLOPS = 67e12             # fp32 outside the tensor cores
-BF16_FLOPS = 989e12            # bf16 tensor cores
 
 
 def emit(phase: str, **fields) -> None:
@@ -57,63 +64,16 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f'check failed: {what}')
 
 
-def cuda_ms(fn, arg_sets, iters: int) -> float:
-    """Mean ms per call from CUDA events over ``iters`` calls after a
-    warm-up, cycling through ``arg_sets`` so that inputs larger than L2 in
-    total arrive cold, as on the main path."""
-    import torch
-    for args in arg_sets:
-        fn(*args)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(*arg_sets[i % len(arg_sets)])
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound_ms(nbytes: float, flops: float, peak_flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
-    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
-                                      else 'operations')
-
-
 def phase_kernels(filt, device):
     import torch
-    from exsr_torch.ops.kernels.sepfilter import (sepfilter_edge,
-                                                  sepfilter_edge_plain)
     from exsr_torch.ops.kernels.stage4 import stage4, stage4_plain
     gen = torch.Generator(device=device).manual_seed(0)
-    results = {}
-
-    # kernel 1: the three x4 CEM filters at their main-path shapes
-    for tag, hw, taps in (('hr', LR * SCALE, filt.w_down_1d),
-                          ('lr', LR, filt.w_inv_hth_1d)):
-        n_sets = 3 if tag == 'hr' else 12
-        xs = [torch.rand(BATCH, hw, hw, 3, generator=gen, device=device)
-              for _ in range(n_sets)]
-        kcol, krow = taps
-        out = sepfilter_edge(xs[0], kcol, krow)
-        ref = sepfilter_edge_plain(xs[0], kcol, krow)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        check(err <= 1e-5, f'sepfilter_edge[{tag}] max error {err} > 1e-5')
-        sets = [(x, kcol, krow) for x in xs]
-        ms = cuda_ms(sepfilter_edge, sets, 60)
-        plain = cuda_ms(sepfilter_edge_plain, sets, 60)
-        numel = xs[0].numel()
-        k = kcol.numel() + krow.numel()
-        bms, by = bound_ms(8 * numel + 4 * k, 2 * k * numel, FP32_FLOPS)
-        results[f'sepfilter_{tag}'] = dict(
-            shape=[BATCH, hw, hw, 3], taps=[kcol.numel(), krow.numel()],
-            max_abs_err=err, tol=1e-5, ms=ms, plain_ms=plain, bound_ms=bms,
-            bound_by=by)
-        emit('kernel', name=f'sepfilter_edge[{tag}]',
-             **results[f'sepfilter_{tag}'])
-        del xs, sets
+    results = sepfilter_kernels(filt, gen, device, BATCH, LR)
+    for name, rec in results.items():
+        if name == 'cem_enforce':
+            emit('cem_enforce', **rec)
+        else:
+            emit('kernel', name=name, **rec)
 
     # kernel 2: the stage-4 epilogue at LR 128, nf 64, gc 32
     nf, gc = 64, 32
@@ -269,16 +229,40 @@ def kernel_rdb(gen, device):
     return results
 
 
+def _counted():
+    from exsr_torch.ops.kernels.rrdb_block import rdb
+    from exsr_torch.ops.kernels.sepfilter import (sepfilter_down,
+                                                  sepfilter_edge,
+                                                  sepfilter_up)
+    from exsr_torch.ops.kernels.stage4 import stage4
+    return {'sepfilter_edge': sepfilter_edge, 'sepfilter_down':
+            sepfilter_down, 'sepfilter_up': sepfilter_up, 'stage4': stage4,
+            'rdb': rdb}
+
+
+def zero_launches() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: fn.launches for k, fn in _counted().items()}
+
+
+def per_forward(forwards: int, stage4: int = 0, rdb: int = 0) -> dict:
+    """The exact launches of ``forwards`` CEM-wrapped forwards: per
+    forward 2 same-size filters (inv_hTh), 1 down, 1 up-combine."""
+    return {'sepfilter_edge': 2 * forwards, 'sepfilter_down': forwards,
+            'sepfilter_up': forwards, 'stage4': stage4 * forwards,
+            'rdb': rdb * forwards}
+
+
 def phase_main_path(cem, filt, device, name):
     import torch
     from exsr_torch.cem.cem import cem_wrap
     from exsr_torch.models.rrdb import RRDBNet
     from exsr_torch.models.rrdb_fast import (pack_grouped_params,
                                              rrdbnet_apply_fast)
-    from exsr_torch.ops.kernels.rrdb_block import rdb
-    from exsr_torch.ops.kernels.sepfilter import sepfilter_edge
-    from exsr_torch.ops.kernels.stage4 import stage4
-
     net = RRDBNet(nf=64, nb=23, gc=32, upscale=SCALE, latent_channels=3,
                   seed=0)
     n_params = sum(p.numel() for p in net.parameters())
@@ -299,7 +283,7 @@ def phase_main_path(cem, filt, device, name):
         return wrapped(packed, lr, z, margins, pre_pad=False)
 
     with torch.inference_mode():
-        sepfilter_edge.launches = stage4.launches = rdb.launches = 0
+        zero_launches()
         serve(zs[0])  # warm-up: first use of every library and kernel
         torch.cuda.synchronize()
         outs, times = [], []
@@ -308,11 +292,9 @@ def phase_main_path(cem, filt, device, name):
             outs.append(serve(z))
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
-        launches = {'sepfilter_edge': sepfilter_edge.launches,
-                    'stage4': stage4.launches, 'rdb': rdb.launches}
+        launches = read_launches()
         forwards = 1 + len(zs)
-        check(launches == {'sepfilter_edge': 5 * forwards,
-                           'stage4': 69 * forwards, 'rdb': 0},
+        check(launches == per_forward(forwards, stage4=69),
               f'launches {launches} over {forwards} forwards')
 
         # CUDA-event time of the same forward, back to back
@@ -350,9 +332,6 @@ def phase_fused_path(cem, filt, device, name, inputs):
     import torch
     from exsr_torch.cem.cem import cem_wrap
     from exsr_torch.models.rrdb import RRDBNet
-    from exsr_torch.ops.kernels.rrdb_block import rdb
-    from exsr_torch.ops.kernels.sepfilter import sepfilter_edge
-    from exsr_torch.ops.kernels.stage4 import stage4
 
     lr, zs, grouped_out = inputs
     net = RRDBNet(nf=64, nb=23, gc=32, upscale=SCALE, latent_channels=3,
@@ -364,7 +343,7 @@ def phase_fused_path(cem, filt, device, name, inputs):
         return wrapped(None, lr, z, margins, pre_pad=False)
 
     with torch.inference_mode():
-        sepfilter_edge.launches = stage4.launches = rdb.launches = 0
+        zero_launches()
         serve(zs[0])  # warm-up, and the trunk's weights packed once
         torch.cuda.synchronize()
         outs, times = [], []
@@ -373,11 +352,9 @@ def phase_fused_path(cem, filt, device, name, inputs):
             outs.append(serve(z))
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
-        launches = {'sepfilter_edge': sepfilter_edge.launches,
-                    'stage4': stage4.launches, 'rdb': rdb.launches}
+        launches = read_launches()
         forwards = 1 + len(zs)
-        check(launches == {'sepfilter_edge': 5 * forwards, 'stage4': 0,
-                           'rdb': 69 * forwards},
+        check(launches == per_forward(forwards, rdb=69),
               f'fused launches {launches} over {forwards} forwards')
         ms_events = cuda_ms(serve, [(z,) for z in zs], 6)
         finite = all(bool(torch.isfinite(o).all()) for o in outs)
@@ -435,8 +412,8 @@ def profile_forward(serve, z):
                       and e.key != stall), key=lambda t: -t[1])
     total = sum(t[1] for t in kernels)
     ours = {k: sum(t[1] for t in kernels if k in t[0])
-            for k in ('sepfilter_edge_kernel', 'stage4_kernel',
-                      'rdb_kernel')}
+            for k in ('sepfilter_edge_kernel', 'sepfilter_down_kernel',
+                      'sepfilter_up_kernel', 'stage4_kernel', 'rdb_kernel')}
     return {'device_us_total': total, 'wall_us': wall_us,
             'device_busy_share': total / wall_us,
             'host_waits_on_full_queue_us': sum(
@@ -503,21 +480,18 @@ def fused_reference_check(cem, device):
 def phase_serving():
     import torch
     from exsr_torch.apps.eval_sr import bucketed_sweep, build_model
-    from exsr_torch.ops.kernels.sepfilter import sepfilter_edge
-    from exsr_torch.ops.kernels.stage4 import stage4
     cem, forward = build_model(SCALE, dtype=torch.bfloat16)
     gen = torch.Generator().manual_seed(3)
     lr = torch.rand(1, 64, 64, 3, generator=gen)
     zs = [torch.full((1, 256, 256, 3), v) for v in (-1.0, -0.5, 0.0, 0.5,
                                                      1.0)]
-    sepfilter_edge.launches = stage4.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     outs = bucketed_sweep(forward, lr, zs)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0)
-    launches = {'sepfilter_edge': sepfilter_edge.launches,
-                'stage4': stage4.launches}
-    check(launches == {'sepfilter_edge': 5, 'stage4': 69},
+    launches = read_launches()
+    check(launches == per_forward(1, stage4=69),
           f'serving launches {launches}')
     check(len(outs) == len(zs), 'one output per Z')
     for o in outs:
@@ -538,7 +512,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from exsr_torch.cem.cem import CEM, CEMConf
     from exsr_torch.ops.kernels import build
 
@@ -575,28 +548,33 @@ def main() -> int:
     # kernel (the main path; the fused path for rdb)
     common = {'route': 'cuda', 'library_ms': None}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'shape')
+    sep = {'source': 'exsr_torch/csrc/sepfilter.cu',
+           'replaces': 'exsr/ops/pallas/sepfilter.py:76', 'path': 'main'}
+
+    def row(name, kern_key, path_launches, forwards, **extra):
+        n = path_launches[name]
+        return {'name': name, **common, **extra, 'forwards': forwards,
+                'launches': n, 'launches_per_forward': n // forwards,
+                **{k: kern[kern_key][k] for k in keys}}
+    # the same-size filter runs at LR on the main path: its row is timed
+    # there, with its HR times (not on the path since the polyphase
+    # kernels) beside them
+    hr = kern['sepfilter_edge[hr]']
     summary = [
-        {'name': 'sepfilter_edge', **common,
-         'source': 'exsr_torch/csrc/sepfilter.cu',
-         'replaces': 'exsr/ops/pallas/sepfilter.py:76',
-         'path': 'main', 'forwards': forwards,
-         'launches': launches['sepfilter_edge'],
-         'launches_per_forward': launches['sepfilter_edge'] // forwards,
-         **{k: kern['sepfilter_hr'][k] for k in keys}},
-        {'name': 'stage4', **common,
-         'source': 'exsr_torch/csrc/stage4.cu',
-         'replaces': 'exsr/ops/pallas/stage4.py:82',
-         'path': 'main', 'forwards': forwards,
-         'launches': launches['stage4'],
-         'launches_per_forward': launches['stage4'] // forwards,
-         **{k: kern['stage4_bf16'][k] for k in keys}},
-        {'name': 'rdb', **common,
-         'source': 'exsr_torch/csrc/rdb.cu',
-         'replaces': 'exsr/ops/pallas/rrdb_block.py:145',
-         'path': 'fused', 'forwards': fused_forwards,
-         'launches': fused_launches['rdb'],
-         'launches_per_forward': fused_launches['rdb'] // fused_forwards,
-         **{k: kern['rdb_bf16'][k] for k in keys}},
+        row(f'sepfilter_{k}', key, launches, forwards, **sep, **extra,
+            graph_ms=kern[key]['graph_ms'])
+        for k, key, extra in (
+            ('edge', 'sepfilter_edge[lr]', {
+                'hr_ms': hr['ms'], 'hr_plain_ms': hr['plain_ms'],
+                'hr_bound_ms': hr['bound_ms']}),
+            ('down', 'sepfilter_down', {}),
+            ('up', 'sepfilter_up[combine]', {'mode': 'combine'}))] + [
+        row('stage4', 'stage4_bf16', launches, forwards,
+            source='exsr_torch/csrc/stage4.cu',
+            replaces='exsr/ops/pallas/stage4.py:82', path='main'),
+        row('rdb', 'rdb_bf16', fused_launches, fused_forwards,
+            source='exsr_torch/csrc/rdb.cu',
+            replaces='exsr/ops/pallas/rrdb_block.py:145', path='fused'),
     ]
     print(json.dumps({'kernels': summary}))
     print(smi)

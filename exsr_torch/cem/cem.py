@@ -10,9 +10,12 @@ consistent upscaling, D consistent downscaling.
 Setup (kernel synthesis, inv_hTh inversion, margin probing) runs once on
 the host in float64 (:mod:`exsr_torch.ops.resize`,
 :mod:`exsr_torch.ops.inv_hth`).  The device chain is fp32 NHWC.  Every
-separable filter runs through the hand-written kernel
-(:func:`exsr_torch.ops.kernels.sepfilter.sepfilter_edge`); a non-separable
-estimated kernel runs as a plain 2-D depthwise ``F.conv2d``.
+separable filter runs through the hand-written kernels of
+:mod:`exsr_torch.ops.kernels.sepfilter`: the inv_hTh filter as
+``sepfilter_edge``, the downscale as ``sepfilter_down``, the upscale as
+``sepfilter_up``, and the combine ``ortho + ns`` as one ``sepfilter_up`` in
+its combine mode.  A non-separable estimated kernel runs as a plain 2-D
+depthwise ``F.conv2d``.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from exsr_torch.ops import filters as F
 from exsr_torch.ops import resize as R
 from exsr_torch.ops.inv_hth import (compute_inv_hth,
                                     invalid_margin_size_downscale)
-from exsr_torch.ops.kernels.sepfilter import sepfilter_edge
+from exsr_torch.ops.kernels.sepfilter import (sepfilter_down, sepfilter_edge,
+                                              sepfilter_up)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,22 +194,24 @@ class CEMFilters:
     sigmoid_range_limit: bool = False
     input_range: tuple[float, float] = (0.0, 1.0)
 
-    def _same(self, x, w2d, w1d):
-        if w1d is not None:
-            return sepfilter_edge(x.contiguous(), *w1d)
-        return F.filter_replicate_same(x, w2d)
-
     def downscale(self, x: torch.Tensor) -> torch.Tensor:
-        return F.aliased_subsample(self._same(x, self.w_down,
-                                              self.w_down_1d),
+        if self.w_down_1d is not None:
+            return sepfilter_down(x.contiguous(), *self.w_down_1d, self.sf,
+                                  self.pre)
+        return F.aliased_subsample(F.filter_replicate_same(x, self.w_down),
                                    self.sf, self.pre)
 
     def upscale(self, x: torch.Tensor) -> torch.Tensor:
-        return self._same(F.zero_stuff(x, self.sf, self.pre), self.w_up,
-                          self.w_up_1d)
+        if self.w_up_1d is not None:
+            return sepfilter_up(x.contiguous(), *self.w_up_1d, self.sf,
+                                self.pre)
+        return F.filter_replicate_same(F.zero_stuff(x, self.sf, self.pre),
+                                       self.w_up)
 
     def conv_inv_hth(self, x: torch.Tensor) -> torch.Tensor:
-        return self._same(x, self.w_inv_hth, self.w_inv_hth_1d)
+        if self.w_inv_hth_1d is not None:
+            return sepfilter_edge(x.contiguous(), *self.w_inv_hth_1d)
+        return F.filter_replicate_same(x, self.w_inv_hth)
 
     def ortho_component(self, lr: torch.Tensor) -> torch.Tensor:
         """U (inv_hTh * y): the LR-determined low-frequency component."""
@@ -226,7 +232,16 @@ class CEMFilters:
     def enforce(self, lr: torch.Tensor, generated: torch.Tensor,
                 decompose: bool = False):
         """The CEM combine ``ortho(lr) + ns(generated)``; with
-        ``decompose`` the pair ``(ortho, ns)``."""
+        ``decompose`` the pair ``(ortho, ns)``.  Without either option and
+        with a separable upscale filter, both upscales and the combine run
+        as one :func:`sepfilter_up`: ``U(a) + (g - U(b))``, the same
+        operations in the same order."""
+        if not (decompose or self.sigmoid_range_limit) and \
+                self.w_up_1d is not None:
+            a = self.conv_inv_hth(lr).contiguous()
+            b = self.conv_inv_hth(self.downscale(generated)).contiguous()
+            return sepfilter_up(a, *self.w_up_1d, self.sf, self.pre, b=b,
+                                g=generated.contiguous())
         ortho = self.ortho_component(lr)
         ns = self.ns_component(generated)
         if decompose:

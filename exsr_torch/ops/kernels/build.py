@@ -10,6 +10,7 @@ module on a machine without ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -97,6 +98,22 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
         _loaded[name] = lib
     return lib
+
+
+@contextlib.contextmanager
+def substitute(name: str, lib: ctypes.CDLL):
+    """Within the block, :func:`load` returns ``lib`` for ``name``: a probe
+    runs another build of a source (a variant, an older version) through
+    the same wrappers."""
+    saved = _loaded.get(name)
+    _loaded[name] = lib
+    try:
+        yield lib
+    finally:
+        if saved is None:
+            _loaded.pop(name, None)
+        else:
+            _loaded[name] = saved
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

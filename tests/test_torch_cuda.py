@@ -14,8 +14,13 @@ from exsr_torch.apps.eval_sr import build_model
 from exsr_torch.cem.cem import CEM, CEMConf
 from exsr_torch.models.rrdb import RRDBNet
 from exsr_torch.ops.kernels import rrdb_block as K
-from exsr_torch.ops.kernels.sepfilter import (sepfilter_edge,
-                                              sepfilter_edge_plain)
+from exsr_torch.ops import filters as F
+from exsr_torch.ops.kernels.sepfilter import (sepfilter_down,
+                                              sepfilter_down_plain,
+                                              sepfilter_edge,
+                                              sepfilter_edge_plain,
+                                              sepfilter_up,
+                                              sepfilter_up_plain)
 from exsr_torch.ops.kernels.stage4 import stage4, stage4_plain
 
 pytestmark = pytest.mark.cuda
@@ -53,6 +58,87 @@ def test_sepfilter_kernel_matches_plain(cuda, shape, kh, kw):
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
     with pytest.raises(NotImplementedError, match='odd'):
         sepfilter_edge(x, torch.cat([kcol, kcol]), krow)
+
+
+def _cem_taps(sf, which, device):
+    """(kcol, krow, pre) of the bicubic CEM's ``which`` filter at ``sf``."""
+    filt = CEM.create(CEMConf(scale_factor=sf)).device_filters(
+        3, device=device)
+    return (*getattr(filt, which), filt.pre)
+
+
+# LR sizes: tiles of the up kernel (32 x 64 HR) and of the down kernel
+# (8 LR rows) are not whole; one image smaller than every tile
+LR_SHAPES = [(2, 13, 21), (1, 3, 2), (2, 37, 70)]
+
+
+@pytest.mark.parametrize('c', [1, 3, 4])
+@pytest.mark.parametrize('sf', [2, 3, 4, 8])
+@pytest.mark.parametrize('b,h,w', LR_SHAPES)
+def test_sepfilter_down_kernel_matches_plain_and_composition(cuda, sf, c, b,
+                                                             h, w):
+    """Against its plain version to 1e-5; against aliased_subsample of the
+    same-size kernel bit for bit (the same operations in the same order);
+    three runs bit-equal.  One HR size that is not a multiple of sf."""
+    kcol, krow, pre = _cem_taps(sf, 'w_down_1d', cuda)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for hh, ww in ((sf * h, sf * w), (sf * h + 1, sf * w + sf - 1)):
+        x = torch.rand(b, hh, ww, c, generator=gen, device=cuda)
+        before = sepfilter_down.launches
+        out = sepfilter_down(x, kcol, krow, sf, pre)
+        torch.cuda.synchronize()
+        assert sepfilter_down.launches == before + 1
+        ref = sepfilter_down_plain(x, kcol, krow, sf, pre)
+        assert out.shape == ref.shape
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+        composed = F.aliased_subsample(sepfilter_edge(x, kcol, krow), sf, pre)
+        assert torch.equal(out, composed)
+        for _ in range(2):
+            assert torch.equal(sepfilter_down(x, kcol, krow, sf, pre), out)
+
+
+@pytest.mark.parametrize('combine', [False, True])
+@pytest.mark.parametrize('c', [1, 3, 4])
+@pytest.mark.parametrize('sf', [2, 3, 4, 8])
+@pytest.mark.parametrize('b,h,w', LR_SHAPES)
+def test_sepfilter_up_kernel_matches_plain_and_composition(cuda, sf, c, b, h,
+                                                           w, combine):
+    """Against its plain version to 1e-5; against the same-size kernel on
+    the zero-stuffed image (and the elementwise combine) bit for bit: a
+    skipped product is fmaf(k, 0, acc) == acc; three runs bit-equal.  At
+    sf 2 (pre 0) the clamped top and left edges repeat data."""
+    kcol, krow, pre = _cem_taps(sf, 'w_up_1d', cuda)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    a = torch.rand(b, h, w, c, generator=gen, device=cuda) * 2 - 1
+    kw = {}
+    if combine:
+        kw = dict(b=torch.rand(b, h, w, c, generator=gen, device=cuda),
+                  g=torch.rand(b, sf * h, sf * w, c, generator=gen,
+                               device=cuda))
+    before = sepfilter_up.launches
+    out = sepfilter_up(a, kcol, krow, sf, pre, **kw)
+    torch.cuda.synchronize()
+    assert sepfilter_up.launches == before + 1
+    ref = sepfilter_up_plain(a, kcol, krow, sf, pre, **kw)
+    assert out.shape == ref.shape == (b, sf * h, sf * w, c)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+    def up(t):
+        return sepfilter_edge(F.zero_stuff(t, sf, pre).contiguous(), kcol,
+                              krow)
+    composed = up(a) if not combine else up(a) + (kw['g'] - up(kw['b']))
+    assert torch.equal(out, composed)
+    for _ in range(2):
+        assert torch.equal(sepfilter_up(a, kcol, krow, sf, pre, **kw), out)
+
+
+def test_polyphase_kernels_refuse_even_taps(cuda):
+    x = torch.rand(1, 16, 16, 3, device=cuda)
+    k, even = torch.ones(5, device=cuda), torch.ones(4, device=cuda)
+    with pytest.raises(NotImplementedError, match='odd'):
+        sepfilter_down(x, even, k, 4, (1, 1))
+    with pytest.raises(NotImplementedError, match='odd'):
+        sepfilter_up(x, k, even, 4, (1, 1))
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -220,6 +306,15 @@ def test_kernels_refuse_gradients(cuda):
     k = torch.ones(3, device=cuda)
     with pytest.raises(NotImplementedError, match='backward'):
         sepfilter_edge(x, k, k)
+    with pytest.raises(NotImplementedError, match='backward'):
+        sepfilter_down(x, k, k, 2, (0, 0))
+    with pytest.raises(NotImplementedError, match='backward'):
+        sepfilter_up(x, k, k, 2, (0, 0))
+    lr = torch.rand(1, 8, 8, 3, device=cuda)
+    with pytest.raises(NotImplementedError, match='backward'):
+        sepfilter_up(lr, k, k, 2, (0, 0), b=lr,
+                     g=torch.rand(1, 16, 16, 3, device=cuda,
+                                  requires_grad=True))
     gen = torch.Generator(device=cuda).manual_seed(9)
     wts = _rdb_weights(gen, 16, 8, 3, torch.float32, cuda)
     xr = torch.rand(1, 8, 8, 16, device=cuda, requires_grad=True)
@@ -251,7 +346,8 @@ def test_cem_chain_on_cuda_matches_cpu_and_is_consistent(cuda):
 
 def test_build_model_on_cuda_matches_cpu(cuda):
     """The serving forward at nb 2, nf 16, fp32: CUDA kernels vs plain CPU
-    versions, and exactly 5 + 3 * nb kernel launches per forward."""
+    versions, and exactly 2 same-size, 1 down, 1 up and 3 * nb stage-4
+    launches per forward."""
     rng = np.random.default_rng(3)
     lr = rng.uniform(size=(2, 20, 20, 3)).astype(np.float32)
     z = rng.uniform(-1, 1, size=(2, 80, 80, 3)).astype(np.float32)
@@ -261,8 +357,10 @@ def test_build_model_on_cuda_matches_cpu(cuda):
     _, fwd_gpu = build_model(4, nb=2, nf=16, device=cuda,
                              dtype=torch.float32, params=net)
     sepfilter_edge.launches = stage4.launches = 0
+    sepfilter_down.launches = sepfilter_up.launches = 0
     out = fwd_gpu(lr, z)
     torch.cuda.synchronize()
-    assert (sepfilter_edge.launches, stage4.launches) == (5, 6)
+    assert (sepfilter_edge.launches, sepfilter_down.launches,
+            sepfilter_up.launches, stage4.launches) == (2, 1, 1, 6)
     torch.testing.assert_close(out.cpu(), fwd_cpu(lr, z), atol=1e-5,
                                rtol=0)
