@@ -34,7 +34,22 @@ Phases, one JSON line each:
    checks, its difference from the main path's output, and its fp32
    reference check against the CPU;
 6. serving entry point: ``build_model(4, dtype=bf16)`` and a
-   ``bucketed_sweep``.
+   ``bucketed_sweep``;
+7. edit: the Z-edit engine through its entry point,
+   ``EditSession(scale=4, nb=23, nf=64, latent_channels=3)`` with seeded
+   weights on a 256 x 256 HR image, ``optimize('l1', max_iters=30)`` on LR
+   windows of 16, 32 and 48 pixels (crops 40, 56, 64 with the margins),
+   fp32 and bf16 trunks: ms per step (forward and backward), launches per
+   step of each kernel (the CEM filter's backward through
+   ``sepfilter_taps``), the loss falling, CEM consistency of the edited
+   crop, every kernel of the step against its plain version at that
+   window's shapes (``stage4`` forward and backward in each trunk dtype,
+   the CEM filter's entry points and adjoints), one profiled round, and the
+   full-width edit gradient on the card against the CPU's (fp32 on a small
+   crop; bf16 on the window-16 crop, within twice the CPU's own bf16 gap).
+
+Phase 3 also checks and times ``sepfilter_taps``, the CEM filter's adjoint
+kernel, at the edit shape and at the main path's batch-16 shapes.
 
 Any failed check raises and the script exits non-zero.  The last lines are
 the kernels summary, the ``nvidia-smi`` name and power limit, and
@@ -50,9 +65,16 @@ import time
 
 from exsr_torch.ops.kernels.measure import (BF16_FLOPS, FP32_FLOPS,
                                             bound_ms, cuda_ms,
-                                            sepfilter_kernels)
+                                            sepfilter_kernels,
+                                            sepfilter_taps_kernels)
 
 LR, SCALE, BATCH = 128, 4, 16
+EDIT_HR, EDIT_WINDOWS, EDIT_ITERS = 256, (16, 32, 48), 30
+EDIT_TAPS_LR = 56  # the window-32 crop, where phase 3 times the adjoints
+# the CEM filter's entry points on the edit path (the view's forward and
+# each step's)
+EDIT_FILTER_CASES = ('sepfilter_edge[lr]', 'sepfilter_down',
+                     'sepfilter_up[combine]')
 
 
 def emit(phase: str, **fields) -> None:
@@ -74,40 +96,24 @@ def phase_kernels(filt, device):
             emit('cem_enforce', **rec)
         else:
             emit('kernel', name=name, **rec)
+    # the CEM filter's backward: its three adjoints at the edit crop (batch
+    # 1) and at the main path's shapes (batch 16, for the SR trainer)
+    for tag, batch, lr in (('edit', 1, EDIT_TAPS_LR), ('main', BATCH, LR)):
+        taps = sepfilter_taps_kernels(filt, gen, device, batch, lr)
+        for kind, rec in taps.items():
+            results[f'sepfilter_taps[{kind},{tag}]'] = rec
+            emit('kernel', name=f'sepfilter_taps[{kind},{tag}]', **rec)
 
     # kernel 2: the stage-4 epilogue at LR 128, nf 64, gc 32
     nf, gc = 64, 32
     for dtype in (torch.bfloat16, torch.float32):
-        def rnd(*shape):
-            return torch.randn(*shape, generator=gen, device=device) \
-                .to(dtype)
-        c3 = rnd(BATCH, LR, LR, gc)
-        ps = [rnd(BATCH, LR, LR, nf + k * gc) for k in (4, 3, 2, 1)]
-        x = rnd(BATCH, LR, LR, nf)
-        # the trunk's init scale: kaiming fan-in x 0.1
-        w4 = (torch.randn(3, 3, gc, nf, generator=gen, device=device)
-              * 0.1 * (2.0 / (9 * gc)) ** 0.5).to(dtype)
-        b4 = torch.randn(nf, generator=gen, device=device) * 0.1
-        out = stage4(c3, *ps, x, w4, b4)
-        ref = stage4_plain(c3, *ps, x, w4, b4)
-        torch.cuda.synchronize()
-        diff = (out.float() - ref.float()).abs()
-        err = diff.max().item()
-        if dtype == torch.float32:
-            tol = 1e-5
-            check(err <= tol, f'stage4[fp32] max error {err} > {tol}')
-        else:
-            # one bf16 ulp (<= 2^-7 relative): fp32 summation order may
-            # move the scaled sum across a bf16 rounding boundary
-            tol = '2^-7 * (1 + |ref|)'
-            excess = (diff - 2 ** -7 * (1 + ref.float().abs())).max().item()
-            check(excess <= 0, f'stage4[bf16] error beyond one ulp: {err}')
-        args = (c3, *ps, x, w4, b4)
+        args = stage4_inputs(gen, device, dtype, BATCH, LR, nf, gc)
+        ref, err, tol = stage4_check(args, dtype)
         ms = cuda_ms(stage4, [args], 40)
         plain = cuda_ms(stage4_plain, [args], 40)
         pix = BATCH * LR * LR
         size = 2 if dtype == torch.bfloat16 else 4
-        nbytes = size * pix * (gc + 4 * nf + 2 * nf) + w4.numel() * size \
+        nbytes = size * pix * (gc + 4 * nf + 2 * nf) + 9 * gc * nf * size \
             + 4 * nf
         peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
         bms, by = bound_ms(nbytes, 2 * 9 * gc * nf * pix, peak)
@@ -119,10 +125,77 @@ def phase_kernels(filt, device):
         if dtype == torch.bfloat16:
             results[f'stage4_{tag}'].update(stage4_chain(args, ref))
         emit('kernel', name=f'stage4[{tag}]', **results[f'stage4_{tag}'])
-        del c3, ps, x, out, ref, diff, args
+        del ref, args
     torch.cuda.empty_cache()
     results.update(kernel_rdb(gen, device))
     return results
+
+
+def stage4_inputs(gen, device, dtype, batch, lr, nf=64, gc=32):
+    """Random stage-4 inputs ``(c3, P0..P3, x, w4, b4)`` at LR ``lr``: P
+    widths nf + 4gc .. nf + gc, w4 at the trunk's init scale (kaiming
+    fan-in x 0.1), fp32 b4."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+    c3 = rnd(batch, lr, lr, gc)
+    ps = [rnd(batch, lr, lr, nf + k * gc) for k in (4, 3, 2, 1)]
+    x = rnd(batch, lr, lr, nf)
+    w4 = (torch.randn(3, 3, gc, nf, generator=gen, device=device)
+          * 0.1 * (2.0 / (9 * gc)) ** 0.5).to(dtype)
+    b4 = torch.randn(nf, generator=gen, device=device) * 0.1
+    return (c3, *ps, x, w4, b4)
+
+
+def stage4_check(args, dtype, where=''):
+    """The kernel against ``stage4_plain`` on the same inputs: fp32 to
+    1e-5, bf16 within one ulp.  Returns ``(plain output, max error,
+    tolerance)``."""
+    import torch
+    from exsr_torch.ops.kernels.stage4 import stage4, stage4_plain
+    out = stage4(*args)
+    ref = stage4_plain(*args)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    if dtype == torch.float32:
+        tol = 1e-5
+        check(err <= tol, f'stage4[fp32]{where} max error {err} > {tol}')
+    else:
+        # one bf16 ulp (<= 2^-7 relative): fp32 summation order may move
+        # the scaled sum across a bf16 rounding boundary
+        tol = '2^-7 * (1 + |ref|)'
+        excess = (diff - 2 ** -7 * (1 + ref.float().abs())).max().item()
+        check(excess <= 0, f'stage4[bf16]{where} error beyond one ulp: {err}')
+    return ref, err, tol
+
+
+def stage4_backward_check(args, gen, dtype, where=''):
+    """The stage-4 Function's input gradients on the card (the kernel's
+    forward, cuDNN's transposed conv) against the CPU's on the same inputs
+    and cotangent: x and the P buffers exactly (0.2 g in the dtype), c3 to
+    1e-5 of its largest in fp32, one bf16 ulp of its largest in bf16."""
+    import torch
+    from exsr_torch.ops.kernels.stage4 import stage4
+    *inputs, w4, b4 = args
+    cot = torch.randn(inputs[-1].shape, generator=gen,
+                      device=inputs[0].device).to(dtype)
+    grads = {}
+    for dev in ('cpu', inputs[0].device):
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in inputs]
+        stage4(*leaves, w4.to(dev), b4.to(dev)).backward(cot.to(dev))
+        grads[str(dev)] = [t.grad.cpu() for t in leaves]
+    ref, got = grads['cpu'], grads[str(inputs[0].device)]
+    check(all(torch.equal(g, r) for g, r in zip(got[1:], ref[1:])),
+          f'stage4[{dtype}]{where} backward: x or P gradient differs')
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    err = ((got[0].float() - ref[0].float()).abs().max()
+           / ref[0].float().abs().max()).item()
+    check(err <= tol, f'stage4[{dtype}]{where} backward: c3 gradient '
+          f'relative error {err} > {tol}')
+    return {'c3_grad_max_rel_err': err, 'c3_grad_tol': tol,
+            'x_p_grads_equal': True}
 
 
 def stage4_chain(args, ref):
@@ -233,11 +306,12 @@ def _counted():
     from exsr_torch.ops.kernels.rrdb_block import rdb
     from exsr_torch.ops.kernels.sepfilter import (sepfilter_down,
                                                   sepfilter_edge,
+                                                  sepfilter_taps,
                                                   sepfilter_up)
     from exsr_torch.ops.kernels.stage4 import stage4
     return {'sepfilter_edge': sepfilter_edge, 'sepfilter_down':
             sepfilter_down, 'sepfilter_up': sepfilter_up, 'stage4': stage4,
-            'rdb': rdb}
+            'rdb': rdb, 'sepfilter_taps': sepfilter_taps}
 
 
 def zero_launches() -> None:
@@ -249,12 +323,14 @@ def read_launches() -> dict:
     return {k: fn.launches for k, fn in _counted().items()}
 
 
-def per_forward(forwards: int, stage4: int = 0, rdb: int = 0) -> dict:
-    """The exact launches of ``forwards`` CEM-wrapped forwards: per
-    forward 2 same-size filters (inv_hTh), 1 down, 1 up-combine."""
+def per_forward(forwards: int, stage4: int = 0, rdb: int = 0,
+                backwards: int = 0) -> dict:
+    """The exact launches of ``forwards`` CEM-wrapped forwards and
+    ``backwards`` backwards: per forward 2 same-size filters (inv_hTh),
+    1 down, 1 up-combine; per backward 3 adjoints (U^T, E^T, D^T)."""
     return {'sepfilter_edge': 2 * forwards, 'sepfilter_down': forwards,
             'sepfilter_up': forwards, 'stage4': stage4 * forwards,
-            'rdb': rdb * forwards}
+            'rdb': rdb * forwards, 'sepfilter_taps': 3 * backwards}
 
 
 def phase_main_path(cem, filt, device, name):
@@ -413,9 +489,11 @@ def profile_forward(serve, z):
     total = sum(t[1] for t in kernels)
     ours = {k: sum(t[1] for t in kernels if k in t[0])
             for k in ('sepfilter_edge_kernel', 'sepfilter_down_kernel',
-                      'sepfilter_up_kernel', 'stage4_kernel', 'rdb_kernel')}
+                      'sepfilter_up_kernel', 'stage4_kernel', 'rdb_kernel',
+                      'sepfilter_taps_kernel')}
     return {'device_us_total': total, 'wall_us': wall_us,
             'device_busy_share': total / wall_us,
+            'kernel_calls': sum(t[2] for t in kernels),
             'host_waits_on_full_queue_us': sum(
                 self_us(e) for e in events if e.key == stall),
             'share': {k: (v / total if total else None)
@@ -477,6 +555,244 @@ def fused_reference_check(cem, device):
             'max_abs_err': err, 'tol': 1e-4}
 
 
+def _window_mask(w_lr: int):
+    """An HR region mask: a centred square of ``w_lr`` LR pixels."""
+    import numpy as np
+    mask = np.zeros((EDIT_HR, EDIT_HR), np.float32)
+    lo = (EDIT_HR - SCALE * w_lr) // 2
+    mask[lo:lo + SCALE * w_lr, lo:lo + SCALE * w_lr] = 1.0
+    return mask
+
+
+def phase_edit(device, name):
+    """The Z-edit engine at full width through EditSession: l1 edits on
+    three windows in fp32 and bf16, each step a forward and a backward of
+    the CEM-wrapped grouped 23-block generator on the window's crop."""
+    import numpy as np
+    import torch
+    from exsr_torch.apps.session import EditSession
+    img = np.random.default_rng(5).uniform(size=(EDIT_HR, EDIT_HR, 3)) \
+        .astype(np.float32)
+    gen = torch.Generator(device=device).manual_seed(7)
+    runs, profiles = [], {}
+    for tag, dtype in (('fp32', None), ('bf16', torch.bfloat16)):
+        sess = EditSession(scale=SCALE, nb=23, nf=64, latent_channels=3,
+                           edit_dtype=dtype, device=device,
+                           time_budget_s=600.0)
+        sess.init_random_params(0)
+        sess.open_image(img)
+        margins = sess.cem.invalidity_margins_lr
+        for w in EDIT_WINDOWS:
+            mask = _window_mask(w)
+            sess.set_region(mask)
+            desired = sess.sr.copy()
+            desired[:, mask > 0] = 0.7
+            data = {'desired': desired}
+            # warm-up: the crop's first forward and backward
+            sess.optimize('l1', data=data, max_iters=5)
+            sess.undo()
+            torch.cuda.synchronize()
+            zero_launches()
+            t0 = time.perf_counter()
+            res = sess.optimize('l1', data=data, max_iters=EDIT_ITERS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            steps = len(res['losses'])
+            # optimize ends with one no-grad forward of the whole view
+            check(launches == per_forward(steps + 1, stage4=69,
+                                          backwards=steps),
+                  f'edit launches {launches} over {steps} steps')
+            view = per_forward(1, stage4=69)
+            t0 = time.perf_counter()
+            sess.recompute()
+            torch.cuda.synchronize()
+            view_s = time.perf_counter() - t0
+            losses = res['losses']
+            check(steps == EDIT_ITERS and all(map(np.isfinite, losses)),
+                  f'edit losses {losses}')
+            check(losses[-1] < losses[0], f'edit loss did not fall: '
+                  f'{losses[0]} -> {losses[-1]}')
+            y0, y1, x0, x1 = sess._crop_box()
+            with torch.no_grad():
+                lr_crop = torch.as_tensor(sess.lr_image[:, y0:y1, x0:x1],
+                                          device=device)
+                z_crop = torch.as_tensor(
+                    sess.cur_z[:, SCALE * y0:SCALE * y1,
+                               SCALE * x0:SCALE * x1], device=device)
+                out = sess._wrapped(sess.eff_params, lr_crop, z_crop,
+                                    margins, pre_pad=False)
+                cons = (sess.filters.downscale(out) - lr_crop)[
+                    :, margins:-margins, margins:-margins].abs().max().item()
+            check(cons < 5e-6, f'edited crop consistency {cons} >= 5e-6')
+            crop = int(y1 - y0)
+            check(crop == x1 - x0, f'edit crop {(y0, y1, x0, x1)} not square')
+            emit('edit_kernels', trunk=tag, window_lr=w, crop_lr=crop,
+                 **edit_kernel_checks(sess.filters, gen, device, crop, dtype,
+                                      filters=tag == 'fp32'))
+            parts = {}
+            if w == 32:
+                # one round of 5 steps (and the view's forward) profiled
+                profiles[tag] = profile_forward(
+                    lambda _: sess.optimize('l1', data=data, max_iters=5),
+                    None)
+                sess.undo()
+                parts = step_parts(sess, lr_crop, z_crop, desired,
+                                   (y0, y1, x0, x1))
+            sess.undo()
+            sess.clear_region()
+            run = dict(trunk=tag, window_lr=w, crop_lr=int(y1 - y0),
+                       steps=steps, ms_per_step=1e3 * (wall - view_s) / steps,
+                       optimize_s=wall, view_forward_s=view_s,
+                       launches=launches,
+                       launches_per_step={
+                           k: (v - view[k]) / steps
+                           for k, v in launches.items()},
+                       first_loss=losses[0], last_loss=losses[-1],
+                       rounds=res['rounds'], consistency_max=cons,
+                       consistency_tol=5e-6, **parts)
+            runs.append(run)
+            emit('edit', device=name, **run)
+        del sess
+        torch.cuda.empty_cache()
+    for tag, prof in profiles.items():
+        emit('edit_profile', trunk=tag, window_lr=32,
+             what='one round of 5 steps and the view forward', **prof)
+    emit('edit_reference', **edit_gradient_check(device))
+    return runs
+
+
+def edit_kernel_checks(filt, gen, device, crop, dtype, filters):
+    """The kernels of an edit step at its window's shapes (batch 1, LR
+    ``crop``), each against its plain version at phase 3's tolerances: the
+    stage-4 epilogue forward and backward in the trunk's dtype and, with
+    ``filters``, the CEM filter's entry points and its three adjoints
+    (fp32 in both trunks, so checked once a window)."""
+    import torch
+    from exsr_torch.ops.kernels.stage4 import stage4
+    dtype = dtype or torch.float32
+    keep = ('shape', 'shape_in', 'max_abs_err', 'max_rel_err', 'tol', 'ms',
+            'graph_ms')
+    where = f' at edit crop {crop}'
+    args = stage4_inputs(gen, device, dtype, 1, crop)
+    _, err, tol = stage4_check(args, dtype, where)
+    out = {'stage4': {'shape': [1, crop, crop, 64], 'max_abs_err': err,
+                      'tol': tol, 'ms': cuda_ms(stage4, [args], 20),
+                      **stage4_backward_check(args, gen, dtype, where)}}
+    del args
+    if filters:
+        recs = sepfilter_kernels(filt, gen, device, 1, crop,
+                                 cases=EDIT_FILTER_CASES, references=False)
+        recs.update({f'sepfilter_taps[{k}]': r for k, r in
+                     sepfilter_taps_kernels(filt, gen, device, 1,
+                                            crop).items()})
+        out.update({name: {k: v for k, v in rec.items() if k in keep}
+                    for name, rec in recs.items()})
+    return out
+
+
+def step_parts(sess, lr_crop, z_crop, desired, box, reps=5):
+    """Host time of an edit step's parts on its crop, each ending in a
+    synchronize: the forward without autograd, the forward recording it
+    (to the loss), and the backward; and the device memory that one step
+    adds at its peak (what autograd keeps alive for the backward)."""
+    import torch
+    y0, y1, x0, x1 = box
+    m = torch.as_tensor(sess.region_mask_hr[SCALE * y0:SCALE * y1,
+                                            SCALE * x0:SCALE * x1],
+                        device=z_crop.device)[None, :, :, None]
+    d = torch.as_tensor(desired[:, SCALE * y0:SCALE * y1,
+                                SCALE * x0:SCALE * x1], device=z_crop.device)
+    fwd = sess._crop_fwd[False]
+    times = {'forward_nograd_ms': 0.0, 'forward_ms': 0.0,
+             'backward_ms': 0.0}
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fwd(sess.eff_params, lr_crop, z_crop)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        z = z_crop.clone().requires_grad_(True)
+        loss = (fwd(sess.eff_params, lr_crop, z) * m - d * m).abs().mean()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, dt in zip(times, (t1 - t0, t2 - t1, t3 - t2)):
+            times[k] += 1e3 * dt / reps
+        del loss, z
+    times['step_peak_mb'] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    return times
+
+
+def edit_gradients(runs, crop, lo, hi, seed):
+    """d(masked l1)/dZ of an edit window's forward, ``EditSession``'s own
+    (the clipped CEM-wrapped grouped 23-block generator at full width on
+    seeded weights, no pre-pad), on an LR ``crop`` input made from
+    ``seed`` with the HR mask ``[lo:hi, lo:hi]``, for each ``(device,
+    edit_dtype)`` of ``runs``, as CPU tensors."""
+    import numpy as np
+    import torch
+    from exsr_torch.apps.session import EditSession
+    rng = np.random.default_rng(seed)
+    hr = SCALE * crop
+    lr = rng.uniform(size=(1, crop, crop, 3)).astype(np.float32)
+    z = rng.uniform(-0.9, 0.9, size=(1, hr, hr, 3)).astype(np.float32)
+    desired = rng.uniform(size=(1, hr, hr, 3)).astype(np.float32)
+    mask = np.zeros((1, hr, hr, 1), np.float32)
+    mask[:, lo:hi, lo:hi] = 1.0
+    grads = []
+    for dev, dtype in runs:
+        sess = EditSession(scale=SCALE, nb=23, nf=64, latent_channels=3,
+                           edit_dtype=dtype, device=dev)
+        sess.init_random_params(0)
+        zt = sess._t(z).requires_grad_(True)
+        m, d = sess._t(mask), sess._t(desired)
+        out = sess._crop_fwd[False](sess.eff_params, sess._t(lr), zt)
+        (out * m - d * m).abs().mean().backward()
+        grads.append(zt.grad.cpu())
+        del sess, zt, out
+    return grads
+
+
+def edit_gradient_check(device):
+    """The edit gradient on the card against the CPU's (plain versions),
+    TF32 off: in fp32 on a small crop (LR 24) to 1e-4 of its largest; in
+    bf16 on the window-16 crop (LR 40) by the gap method: the card's bf16
+    gradient is no further from the CPU's fp32 one than twice the CPU's
+    own bf16 gradient is (each relative to the largest fp32 value)."""
+    import torch
+    bf16 = torch.bfloat16
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.abs().max()).item()
+    ref, got = edit_gradients([('cpu', None), (device, None)], 24, 40, 56, 6)
+    err = rel(got, ref)
+    # fp32 through ~140 convs and their transposes, summed in another
+    # order on each side
+    check(err < 1e-4, f'edit gradient card vs CPU relative error {err}')
+    fp32 = {'shape': [1, 24, 24, 3], 'dtype': 'fp32', 'pre_pad': False,
+            'max_rel_err': err, 'tol': 1e-4,
+            'grad_max': ref.abs().max().item()}
+    # the window-16 crop: 16 LR pixels in the middle, the margins around
+    # them, bucketed to 8
+    crop = 40
+    ref, cpu16, card16 = edit_gradients(
+        [('cpu', None), ('cpu', bf16), (device, bf16)], crop, 48, 112, 8)
+    gap, err = rel(cpu16, ref), rel(card16, ref)
+    check(err <= 2 * gap, f'bf16 edit gradient: card {err} from fp32, '
+          f'beyond 2x the CPU bf16 gap {gap}')
+    bf16_rec = {'shape': [1, crop, crop, 3], 'dtype': 'bf16',
+                'pre_pad': False, 'card_vs_cpu_fp32_rel': err,
+                'cpu_bf16_vs_cpu_fp32_rel': gap, 'tol': '2x the CPU gap',
+                'card_vs_cpu_bf16_rel': rel(card16, cpu16),
+                'grad_max': ref.abs().max().item()}
+    return {'fp32': fp32, 'bf16': bf16_rec}
+
+
 def phase_serving():
     import torch
     from exsr_torch.apps.eval_sr import bucketed_sweep, build_model
@@ -505,6 +821,33 @@ def phase_serving():
          margins_lr=cem.invalidity_margins_lr, launches=launches,
          ms_first_call=ms)
     return launches
+
+
+def taps_row(kern, edit_runs):
+    """The CEM filter's adjoint kernel on the edit path: its three launches
+    of one backward (U^T, E^T, D^T) at the window-32 crop, summed; the
+    launches are those of the fp32 window-32 edit run."""
+    run = next(r for r in edit_runs if r['trunk'] == 'fp32'
+               and r['window_lr'] == 32)
+    parts = {k: kern[f'sepfilter_taps[{k},edit]'] for k in 'UED'}
+    bms = sum(p['bound_ms'] for p in parts.values())
+    return {'name': 'sepfilter_taps', 'route': 'cuda', 'library_ms': None,
+            'source': 'exsr_torch/csrc/sepfilter.cu',
+            'replaces': 'exsr/ops/pallas/sepfilter.py:76 (its adjoint: '
+                        'the TPU kernel has no backward)',
+            'path': 'edit', 'steps': run['steps'],
+            'launches': run['launches']['sepfilter_taps'],
+            'launches_per_step': run['launches']['sepfilter_taps']
+            / run['steps'],
+            'max_abs_err': max(p['max_abs_err'] for p in parts.values()),
+            'ms': sum(p['ms'] for p in parts.values()),
+            'graph_ms': sum(p['graph_ms'] for p in parts.values()),
+            'plain_ms': sum(p['plain_ms'] for p in parts.values()),
+            'bound_ms': bms,
+            'bound_by': 'bytes' if all(p['bound_by'] == 'bytes'
+                                       for p in parts.values())
+            else 'operations',
+            'shape': parts['E']['shape_in']}
 
 
 def main() -> int:
@@ -543,6 +886,7 @@ def main() -> int:
                                                       name, inputs)
     del inputs
     phase_serving()
+    edit_runs = phase_edit(device, name)
 
     # launches: the total over the forwards of the path that runs the
     # kernel (the main path; the fused path for rdb)
@@ -575,6 +919,7 @@ def main() -> int:
         row('rdb', 'rdb_bf16', fused_launches, fused_forwards,
             source='exsr_torch/csrc/rdb.cu',
             replaces='exsr/ops/pallas/rrdb_block.py:145', path='fused'),
+        taps_row(kern, edit_runs),
     ]
     print(json.dumps({'kernels': summary}))
     print(smi)

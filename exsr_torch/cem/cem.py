@@ -15,7 +15,9 @@ separable filter runs through the hand-written kernels of
 ``sepfilter_edge``, the downscale as ``sepfilter_down``, the upscale as
 ``sepfilter_up``, and the combine ``ortho + ns`` as one ``sepfilter_up`` in
 its combine mode.  A non-separable estimated kernel runs as a plain 2-D
-depthwise ``F.conv2d``.
+depthwise ``F.conv2d``.  The chain is differentiable, as the Z-edit engine
+needs: each filter's backward is its adjoint, applied by the
+``sepfilter_taps`` kernel on CUDA.
 """
 from __future__ import annotations
 
@@ -31,8 +33,8 @@ from exsr_torch.ops import filters as F
 from exsr_torch.ops import resize as R
 from exsr_torch.ops.inv_hth import (compute_inv_hth,
                                     invalid_margin_size_downscale)
-from exsr_torch.ops.kernels.sepfilter import (sepfilter_down, sepfilter_edge,
-                                              sepfilter_up)
+from exsr_torch.ops.kernels.sepfilter import (AdjointTables, sepfilter_down,
+                                              sepfilter_edge, sepfilter_up)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,7 +98,8 @@ class CEM:
 
         Each 2-D filter that factors as a rank-1 outer product (all of them
         for bicubic) runs as column then row taps through the separable
-        kernel; others keep the 2-D path.
+        kernel, with the :class:`AdjointTables` of its backward built
+        from the numpy taps; others keep the 2-D path.
         """
         device = resolve_device(device)
         sf = int(self.conf.scale_factor)
@@ -106,17 +109,22 @@ class CEM:
             w2d = F.depthwise_weights(kernel2d, channels, device=device)
             fac = F.separable_factors(kernel2d)
             if fac is None:
-                return w2d, None
-            return w2d, tuple(torch.as_tensor(t, dtype=torch.float32,
-                                              device=device) for t in fac)
+                return w2d, None, None
+            taps = tuple(torch.as_tensor(t, dtype=torch.float32,
+                                         device=device) for t in fac)
+            # the adjoint's tables from the fp32 taps the forward uses
+            fp32 = (t.astype(np.float32) for t in fac)
+            return w2d, taps, AdjointTables(*fp32)
 
-        w_down, w_down_1d = build(np.rot90(self.ds_kernel, 2).copy())
-        w_up, w_up_1d = build(self.ds_kernel * sf ** 2)
-        w_inv, w_inv_1d = build(self.inv_hth)
+        w_down, w_down_1d, adj_down = build(np.rot90(self.ds_kernel, 2)
+                                            .copy())
+        w_up, w_up_1d, adj_up = build(self.ds_kernel * sf ** 2)
+        w_inv, w_inv_1d, adj_inv = build(self.inv_hth)
         return CEMFilters(
             sf=sf, pre=(int(pre[0]), int(pre[1])),
             w_down=w_down, w_up=w_up, w_inv_hth=w_inv,
             w_down_1d=w_down_1d, w_up_1d=w_up_1d, w_inv_hth_1d=w_inv_1d,
+            adj_down=adj_down, adj_up=adj_up, adj_inv_hth=adj_inv,
             sigmoid_range_limit=self.conf.sigmoid_range_limit,
             input_range=self.conf.input_range)
 
@@ -182,7 +190,7 @@ class CEM:
 class CEMFilters:
     """Device-resident constant filters: 2-D depthwise weights
     ``[C, 1, kh, kw]`` and, for separable filters, fp32 ``(col, row)`` 1-D
-    taps."""
+    taps and the tables of their adjoints."""
     sf: int
     pre: tuple[int, int]
     w_down: torch.Tensor
@@ -191,26 +199,30 @@ class CEMFilters:
     w_down_1d: tuple[torch.Tensor, torch.Tensor] | None = None
     w_up_1d: tuple[torch.Tensor, torch.Tensor] | None = None
     w_inv_hth_1d: tuple[torch.Tensor, torch.Tensor] | None = None
+    adj_down: AdjointTables | None = None
+    adj_up: AdjointTables | None = None
+    adj_inv_hth: AdjointTables | None = None
     sigmoid_range_limit: bool = False
     input_range: tuple[float, float] = (0.0, 1.0)
 
     def downscale(self, x: torch.Tensor) -> torch.Tensor:
         if self.w_down_1d is not None:
             return sepfilter_down(x.contiguous(), *self.w_down_1d, self.sf,
-                                  self.pre)
+                                  self.pre, adjoint=self.adj_down)
         return F.aliased_subsample(F.filter_replicate_same(x, self.w_down),
                                    self.sf, self.pre)
 
     def upscale(self, x: torch.Tensor) -> torch.Tensor:
         if self.w_up_1d is not None:
             return sepfilter_up(x.contiguous(), *self.w_up_1d, self.sf,
-                                self.pre)
+                                self.pre, adjoint=self.adj_up)
         return F.filter_replicate_same(F.zero_stuff(x, self.sf, self.pre),
                                        self.w_up)
 
     def conv_inv_hth(self, x: torch.Tensor) -> torch.Tensor:
         if self.w_inv_hth_1d is not None:
-            return sepfilter_edge(x.contiguous(), *self.w_inv_hth_1d)
+            return sepfilter_edge(x.contiguous(), *self.w_inv_hth_1d,
+                                  adjoint=self.adj_inv_hth)
         return F.filter_replicate_same(x, self.w_inv_hth)
 
     def ortho_component(self, lr: torch.Tensor) -> torch.Tensor:
@@ -241,7 +253,8 @@ class CEMFilters:
             a = self.conv_inv_hth(lr).contiguous()
             b = self.conv_inv_hth(self.downscale(generated)).contiguous()
             return sepfilter_up(a, *self.w_up_1d, self.sf, self.pre, b=b,
-                                g=generated.contiguous())
+                                g=generated.contiguous(),
+                                adjoint=self.adj_up)
         ortho = self.ortho_component(lr)
         ns = self.ns_component(generated)
         if decompose:

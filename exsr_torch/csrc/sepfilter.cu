@@ -37,6 +37,24 @@
 // and pre (at sf 2, pre 0 the top edge repeats data row 0 up to kh/2 + 1
 // times), so the host builds the tap lists of every HR row and column and
 // passes them in.
+//
+// A fourth entry point serves the gradients, and replaces no TPU kernel
+// (exsr differentiates the XLA path that its Pallas kernel stands in for):
+//
+//   sepfilter_taps  out[n,i,j,c] = sum_e wr[e,i] sum_f wc[f,j]
+//                                  x[n, ir[e,i], ic[f,j], c],
+//                   from host-built tables (index -1 after the last entry).
+//                   With the transposed 1-D matrices of the three maps
+//                   above it computes their adjoints E^T, D^T and U^T: a
+//                   clamped tap folds back onto the edge sample, so the
+//                   adjoint is no clamped correlation, and the host sums
+//                   the folded weights.
+//
+// It is bound by bytes too, and written simply: one block per output tile
+// stages the input rows and columns the tile's tables reach (the host
+// passes each tile's range), runs the column pass (each output row at
+// every staged flat column) into shared memory and the row pass into the
+// output, fp32 FMA, entries in ascending order, each sum from 0.f.
 #include <cuda_runtime.h>
 
 namespace {
@@ -426,6 +444,70 @@ __global__ void __launch_bounds__(kThreads) sepfilter_up_kernel(UpArgs p) {
   }
 }
 
+// ---------------------------------------------------------------- adjoints
+struct TapsArgs {
+  const float* x;
+  float* out;
+  const int* ridx;    // [er][hout]
+  const float* rw;
+  const int* cidx;    // [ec][wout]
+  const float* cw;
+  const int* rlo;     // staged input rows of row tile t: [rlo[t], rhi[t]]
+  const int* rhi;
+  const int* clo;     // staged input columns of column tile t
+  const int* chi;
+  int hin, win, C, hout, wout, er, ec, th, tw, sh, ld;
+};
+
+__global__ void __launch_bounds__(kThreads) sepfilter_taps_kernel(TapsArgs p) {
+  extern __shared__ float smem[];
+  const int C = p.C, ld = p.ld;
+  const int i0 = blockIdx.y * p.th, j0 = blockIdx.x * p.tw;
+  const int th = min(p.th, p.hout - i0), tw = min(p.tw, p.wout - j0);
+  const int r0 = p.rlo[blockIdx.y], nr = p.rhi[blockIdx.y] - r0 + 1;
+  const int c0 = p.clo[blockIdx.x];
+  const int nq = (p.chi[blockIdx.x] - c0 + 1) * C;  // staged floats a row
+  float* s_x = smem;              // [sh][ld] staged input
+  float* s_t = smem + p.sh * ld;  // [th][ld] column pass
+  const float* x = p.x + (size_t)blockIdx.z * p.hin * p.win * C;
+  float* out = p.out + (size_t)blockIdx.z * p.hout * p.wout * C;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < nr; r += kWarps) {
+    const float* src = x + ((size_t)(r0 + r) * p.win + c0) * C;
+    for (int f = lane; f < nq; f += 32) cp_async4(s_x + r * ld + f, src + f);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int t = threadIdx.x; t < th * nq; t += kThreads) {
+    const int i = t / nq, q = t - i * nq;
+    float acc = 0.f;
+    for (int e = 0; e < p.er; ++e) {
+      const int at = e * p.hout + i0 + i;
+      const int v = __ldg(p.ridx + at);
+      if (v < 0) break;
+      acc = fmaf(__ldg(p.rw + at), s_x[(v - r0) * ld + q], acc);
+    }
+    s_t[i * ld + q] = acc;
+  }
+  __syncthreads();
+
+  const int nf = tw * C;
+  for (int t = threadIdx.x; t < th * nf; t += kThreads) {
+    const int i = t / nf, f = t - i * nf;
+    const int j = f / C, c = f - j * C;
+    float acc = 0.f;
+    for (int e = 0; e < p.ec; ++e) {
+      const int at = e * p.wout + j0 + j;
+      const int v = __ldg(p.cidx + at);
+      if (v < 0) break;
+      acc = fmaf(__ldg(p.cw + at), s_t[i * ld + (v - c0) * C + c], acc);
+    }
+    out[((size_t)(i0 + i) * p.wout + j0) * C + f] = acc;
+  }
+}
+
 template <typename Kernel>
 int prepare(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
@@ -556,6 +638,31 @@ int exsr_sepfilter_up(const void* a, const void* b, const void* g, void* out,
     default: return combine ? launch_up<0, true>(args, B, smem, s)
                             : launch_up<0, false>(args, B, smem, s);
   }
+}
+
+// Dynamic shared memory of a taps launch, in bytes: the staged input
+// (sh rows of sw pixels) and the column pass (th rows).
+size_t exsr_sepfilter_taps_smem(int C, int th, int sh, int sw) {
+  const size_t ld = ((size_t)sw * C) | 1;
+  return (size_t)(sh + th) * ld * sizeof(float);
+}
+
+int exsr_sepfilter_taps(const void* x, void* out, const void* ridx,
+                        const void* rw, const void* cidx, const void* cw,
+                        const void* rlo, const void* rhi, const void* clo,
+                        const void* chi, int B, int hin, int win, int C,
+                        int hout, int wout, int er, int ec, int th, int tw,
+                        int sh, int sw, void* stream) {
+  const size_t smem = exsr_sepfilter_taps_smem(C, th, sh, sw);
+  const TapsArgs args{(const float*)x, (float*)out, (const int*)ridx,
+                      (const float*)rw, (const int*)cidx, (const float*)cw,
+                      (const int*)rlo, (const int*)rhi, (const int*)clo,
+                      (const int*)chi, hin, win, C, hout, wout, er, ec, th,
+                      tw, sh, (sw * C) | 1};
+  if (int e = prepare(sepfilter_taps_kernel, smem)) return e;
+  dim3 grid((wout + tw - 1) / tw, (hout + th - 1) / th, B);
+  sepfilter_taps_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(args);
+  return (int)cudaGetLastError();
 }
 
 const char* exsr_cuda_error_string(int err) {

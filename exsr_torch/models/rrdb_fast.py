@@ -17,8 +17,11 @@ channel 0, where the epilogue kernel
 
 Public functions take NHWC tensors.  Packed conv weights are OIHW in
 ``channels_last`` memory, ready for ``F.conv2d`` on ``channels_last``
-activations; ``w4`` is HWIO for the kernel.  Inference only on CUDA: the
-epilogue kernel has no backward.
+activations; ``w4`` is HWIO for the kernel.  Differentiable on both
+devices (the Z-edit engine runs it forward and backward): the epilogue
+kernel and the CEM filter kernels are autograd Functions, and autograd
+keeps no P buffer alive, since the slice sums read P through views and the
+epilogue's backward needs only ``w4``.
 """
 from __future__ import annotations
 

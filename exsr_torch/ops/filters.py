@@ -30,7 +30,9 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _no_tf32():
+def no_tf32():
+    """cuDNN's fp32 convolutions in full fp32 (TF32 off) within the
+    block."""
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -92,7 +94,7 @@ def depthwise_correlate(x: torch.Tensor, weights: torch.Tensor
                         ) -> torch.Tensor:
     """VALID depthwise cross-correlation of NHWC ``x`` with ``[C,1,kh,kw]``
     weights, in full fp32 (TF32 off)."""
-    with _no_tf32():
+    with no_tf32():
         y = F.conv2d(to_nchw(x), weights.to(x.dtype), groups=x.shape[-1])
     return to_nhwc(y)
 
@@ -117,6 +119,13 @@ def filter_replicate_same_separable(x: torch.Tensor, w_col: torch.Tensor,
     kh, kw = w_col.shape[2], w_row.shape[3]
     y = depthwise_correlate(replicate_pad(x, kh // 2, 0), w_col)
     return depthwise_correlate(replicate_pad(y, 0, kw // 2), w_row)
+
+
+def clip_unit(x: torch.Tensor) -> torch.Tensor:
+    """``x`` clipped to [0, 1] as ``jnp.clip`` clips: a maximum, then a
+    minimum, each of which splits the gradient at an exact tie
+    (``torch.clamp`` would pass all of it)."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
 
 
 def zero_stuff(x: torch.Tensor, f: int, pre: tuple[int, int]

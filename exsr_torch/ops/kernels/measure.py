@@ -214,6 +214,65 @@ def sepfilter_kernels(filt, gen, device, batch: int, lr: int,
     return results
 
 
+def taps_inputs(filt, batch: int, lr: int, gen, device):
+    """The three adjoints of the CEM filter's backward at LR ``lr`` (HR
+    ``lr * sf``), as ``{kind: (input, row table, column table)}``: ``U``
+    (U^T, HR in, LR out), ``E`` (the inv_hTh filter's E^T, LR) and ``D``
+    (D^T, LR in, HR out), in the order a backward runs them."""
+    sf, pre = filt.sf, filt.pre
+    hr = lr * sf
+    cases = {'U': (filt.adj_up, hr, lr), 'E': (filt.adj_inv_hth, lr, lr),
+             'D': (filt.adj_down, lr, hr)}
+    out = {}
+    for kind, (tables, n_in, n_out) in cases.items():
+        y = torch.rand(batch, n_in, n_in, 3, generator=gen, device=device)
+        out[kind] = (y, *tables.get(kind, n_out, n_out, sf, pre, device))
+    return out
+
+
+def sepfilter_taps_kernels(filt, gen, device, batch: int, lr: int,
+                           verify: bool = True) -> dict:
+    """``sepfilter_taps`` against its plain version (tolerance 1e-5 of the
+    largest output: the sums run in another order) for each adjoint of
+    the CEM filter's backward at one shape, with its time by events and by
+    graph replay, the plain version's, and its bound: bytes (input, output
+    and both tables, once) or useful operations (2 a table entry, column
+    pass at every input column, row pass at every output row)."""
+    results = {}
+    for kind, (y, rows, cols) in taps_inputs(filt, batch, lr, gen,
+                                             device).items():
+        sets = [(y, rows, cols)] + [
+            (torch.rand(y.shape, generator=gen, device=device), rows, cols)
+            for _ in range(2)]
+        out = K.sepfilter_taps(*sets[0])
+        ref = K.sepfilter_taps_plain(*sets[0])
+        torch.cuda.synchronize()
+        abs_err = (out - ref).abs().max().item()
+        err = abs_err / ref.abs().max().item()
+        if verify:
+            _check(err <= 1e-5, f'sepfilter_taps[{kind}] relative error '
+                   f'{err} > 1e-5')
+        b, hi, wi, c = y.shape
+        ho, wo = out.shape[1:3]
+        tables = sum(4 * t.idx.numel() * 2 for t in (rows, cols))
+        nbytes = 4 * (y.numel() + out.numel()) + tables
+        nnz_r = int((rows.idx >= 0).sum())
+        nnz_c = int((cols.idx >= 0).sum())
+        flops = 2 * b * c * (nnz_r * wi + nnz_c * ho)
+        bms, by = bound_ms(nbytes, flops, FP32_FLOPS)
+        results[kind] = dict(
+            shape_in=list(y.shape), shape_out=list(out.shape),
+            entries=[rows.idx.shape[0], cols.idx.shape[0]],
+            max_abs_err=abs_err, max_rel_err=err, tol=1e-5,
+            ms=cuda_ms(K.sepfilter_taps, sets, 30),
+            graph_ms=graph_ms(K.sepfilter_taps, sets, 30),
+            plain_ms=cuda_ms(K.sepfilter_taps_plain, sets, 5),
+            bound_ms=bms, bound_by=by)
+        del out, ref, sets
+    torch.cuda.empty_cache()
+    return results
+
+
 def _check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f'check failed: {what}')

@@ -22,10 +22,26 @@ composition through :func:`sepfilter_edge` bit for bit.  Which taps of the
 up filter meet a data row or column near a clamped edge depends on ``sf``
 and ``pre``; the host builds those lists (:func:`polyphase_taps`) and the
 kernel follows them.
+
+Gradients.  Each entry point runs through a ``torch.autograd.Function``
+on both devices.  Every map is linear in its images, so its backward is its
+adjoint, and the adjoint of a separable map is the separable map of the
+transposed 1-D matrices: ``E^T`` for the same-size filter ``E``, ``D^T =
+E^T S^T`` for ``D = S E`` (keep every ``sf``-th sample from ``pre``) and
+``U^T = S E^T`` for ``U = E S^T``.  ``E^T`` is no clamped correlation: a
+clamped tap folds back onto the edge sample.  So the host transposes each
+1-D matrix (:func:`adjoint_taps`, kept per shape by the taps' owner in an
+:class:`AdjointTables`) and one more kernel,
+:func:`sepfilter_taps`, applies such tables along both axes.  It replaces
+no TPU kernel: ``exsr`` differentiates the XLA path that its Pallas kernel
+stands in for.  The adjoint of the adjoint is the forward again, so
+gradients of gradients (the histogram loss's temperature search) run
+through the same kernels.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -103,6 +119,195 @@ def _up_tables(n_lr: int, sf: int, pre: int, k: int, device):
     return hit
 
 
+def adjoint_taps(kind: str, n_in: int, sf: int, pre: int, k
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """Tables of the adjoint of one axis of a forward map, as
+    ``(int32 indices, float64 weights)``, each ``[max entries, n_in]``.
+
+    ``kind`` is the forward map along an axis of ``n_in`` input samples,
+    with taps ``k`` and replicate borders: ``'E'`` the same-size filter,
+    ``'D'`` the filter kept at samples ``pre, pre + sf, ...`` (HR in, LR
+    out), ``'U'`` the filter of the zero-stuffed signal (LR in, ``n_in *
+    sf`` HR out).  Entry ``e`` of adjoint output ``i`` (an input sample of
+    the forward) is the ``e``-th forward output, ascending, whose taps meet
+    sample ``i``, with the sum of those taps' weights (in float64: at a
+    clamped edge several taps fold onto one sample); index ``-1`` and
+    weight 0 after the last entry.
+    """
+    k = np.asarray(k, np.float64).reshape(-1)
+    nk = k.size
+    if kind == 'E':
+        n_sig, pos = n_in, np.arange(n_in)
+    elif kind == 'D':
+        n_sig, pos = n_in, np.arange(pre, n_in, sf)
+    elif kind == 'U':
+        n_sig = n_in * sf
+        pos = np.arange(n_sig)
+    else:
+        raise ValueError(f'kind must be E, D or U, got {kind!r}')
+    src = np.clip(pos[:, None] - nk // 2 + np.arange(nk)[None, :], 0,
+                  n_sig - 1)
+    if kind == 'U':
+        data = (src - pre) % sf == 0
+        src = (src - pre) // sf
+    else:
+        data = np.ones(src.shape, bool)
+    n_out = pos.size
+    fwd = np.zeros((n_out, n_in))
+    touched = np.zeros((n_out, n_in), bool)
+    rows = np.broadcast_to(np.arange(n_out)[:, None], src.shape)[data]
+    np.add.at(fwd, (rows, src[data]), np.broadcast_to(k, src.shape)[data])
+    touched[rows, src[data]] = True
+    count = touched.sum(0)
+    width = max(1, int(count.max()) if n_in else 1)
+    order = np.argsort(~touched.T, axis=1, kind='stable')[:, :width]
+    live = np.arange(width)[None, :] < count[:, None]
+    idx = np.where(live, order, -1)
+    w = np.where(live, np.take_along_axis(fwd.T, order, 1), 0.0)
+    return (np.ascontiguousarray(idx.T, dtype=np.int32),
+            np.ascontiguousarray(w.T))
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisTable:
+    """One axis of a :func:`sepfilter_taps` product, on a device: output
+    ``i`` is ``sum_e w[e, i] * input[idx[e, i]]`` over ``n_in`` input
+    samples.  ``lo`` and ``hi`` bound the input samples that each tile of
+    ``tile`` outputs reads (int32, one per tile); ``span`` is the largest
+    ``hi - lo + 1``."""
+    idx: torch.Tensor
+    w: torch.Tensor
+    n_in: int
+    tile: int
+    lo: torch.Tensor
+    hi: torch.Tensor
+    span: int
+
+    @classmethod
+    def build(cls, idx: np.ndarray, w: np.ndarray, n_in: int, tile: int,
+              device, dtype=torch.float32) -> 'AxisTable':
+        n_out = idx.shape[1]
+        tiles = max(1, -(-n_out // tile))
+        pad = tiles * tile - n_out
+        ix = np.pad(idx, ((0, 0), (0, pad)), constant_values=-1)
+        ix = ix.reshape(idx.shape[0], tiles, tile)
+        live = ix >= 0
+        lo = np.where(live, ix, n_in).min((0, 2))
+        hi = np.where(live, ix, -1).max((0, 2))
+        empty = hi < 0
+        lo[empty], hi[empty] = 0, 0
+        return cls(torch.from_numpy(idx).to(device),
+                   torch.from_numpy(w).to(device=device, dtype=dtype),
+                   n_in, tile,
+                   torch.from_numpy(lo.astype(np.int32)).to(device),
+                   torch.from_numpy(hi.astype(np.int32)).to(device),
+                   int((hi - lo).max()) + 1)
+
+
+# adjoint output tile along each axis, by the forward's kind: E (LR, same
+# size), D^T (LR -> HR, few inputs per output), U^T (HR -> LR, ~sf + k/sf
+# inputs per output, so small tiles keep the staged input small)
+_ADJ_TILE = {'E': (16, 64), 'D': (32, 64), 'U': (8, 16)}
+
+
+class AdjointTables:
+    """The adjoint tables of one separable filter: :func:`adjoint_taps` of
+    its float64 host taps, as :class:`AxisTable` pairs kept by kind, input
+    shape, ``sf``, ``pre``, device and weight dtype.
+
+    The owner of the taps keeps one (``CEMFilters`` does, built from the
+    numpy filters), so a backward neither copies the taps from the device
+    nor builds a table twice; :meth:`of` copies them from the device for a
+    caller that holds only the tensors."""
+
+    def __init__(self, kcol, krow):
+        self.host = tuple(np.asarray(k, np.float64).reshape(-1)
+                          for k in (kcol, krow))
+        self._cache: dict = {}
+
+    @classmethod
+    def of(cls, kcol: torch.Tensor, krow: torch.Tensor) -> 'AdjointTables':
+        return cls(*(k.detach().cpu().numpy() for k in (kcol, krow)))
+
+    def get(self, kind: str, n_h: int, n_w: int, sf: int,
+            pre: tuple[int, int], device, dtype=torch.float32
+            ) -> tuple[AxisTable, AxisTable]:
+        """(row, column) tables that take :func:`sepfilter_taps` to the
+        adjoint of the ``kind`` map whose input is ``n_h x n_w``."""
+        key = (kind, n_h, n_w, sf, tuple(pre), torch.device(device), dtype)
+        hit = self._cache.get(key)
+        if hit is None:
+            hit = tuple(
+                AxisTable.build(*adjoint_taps(kind, n, sf, p, k),
+                                {'E': n, 'D': len(range(p, n, sf)),
+                                 'U': n * sf}[kind],
+                                _ADJ_TILE[kind][axis], device, dtype)
+                for axis, (n, p, k) in enumerate(zip((n_h, n_w), pre,
+                                                     self.host)))
+            self._cache[key] = hit
+        return hit
+
+
+def _axis_product(x: torch.Tensor, tab: AxisTable, dim: int
+                  ) -> torch.Tensor:
+    shape = [1] * x.dim()
+    shape[dim] = tab.idx.shape[1]
+    out = None
+    for e in range(tab.idx.shape[0]):
+        term = x.index_select(dim, tab.idx[e].clamp(min=0)) * \
+            tab.w[e].to(x.dtype).view(shape)
+        out = term if out is None else out + term
+    return out
+
+
+def sepfilter_taps_plain(x: torch.Tensor, rows: AxisTable,
+                         cols: AxisTable) -> torch.Tensor:
+    """Plain version of :func:`sepfilter_taps`: ``index_select`` and the
+    weights, along H (entries ascending) and then along W."""
+    return _axis_product(_axis_product(x, rows, 1), cols, 2)
+
+
+def sepfilter_taps(x: torch.Tensor, rows: AxisTable, cols: AxisTable
+                   ) -> torch.Tensor:
+    """``out[n,i,j,c] = sum_e rows.w[e,i] * sum_f cols.w[f,j] *
+    x[n, rows.idx[e,i], cols.idx[f,j], c]`` on NHWC ``x``.
+
+    A CPU tensor goes to :func:`sepfilter_taps_plain`; a CUDA tensor (fp32)
+    launches the kernel, a column pass then a row pass over each output
+    tile's staged input, in fp32 FMA."""
+    if x.dim() != 4 or x.shape[1] != rows.n_in or x.shape[2] != cols.n_in:
+        raise ValueError(f'x {tuple(x.shape)} does not match the tables '
+                         f'({rows.n_in} x {cols.n_in} inputs)')
+    if x.device.type == 'cpu':
+        return sepfilter_taps_plain(x, rows, cols)
+    if x.device.type != 'cuda':
+        raise ValueError(f'unsupported device {x.device}')
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError('x must be contiguous fp32 NHWC')
+    for t in (rows, cols):
+        if t.idx.device != x.device or t.w.dtype != torch.float32:
+            raise ValueError('tables must be fp32, on the device of x')
+    n, _, _, c = x.shape
+    hout, wout = rows.idx.shape[1], cols.idx.shape[1]
+    out = x.new_empty((n, hout, wout, c))
+    if out.numel() == 0:
+        return out
+    lib = build.load('sepfilter', _SIGNATURES)
+    smem = lib.exsr_sepfilter_taps_smem(c, rows.tile, rows.span, cols.span)
+    _check_smem(smem, f'sepfilter_taps at C={c}, spans {rows.span} x '
+                f'{cols.span}')
+    err = lib.exsr_sepfilter_taps(
+        x.data_ptr(), out.data_ptr(), rows.idx.data_ptr(),
+        rows.w.data_ptr(), cols.idx.data_ptr(), cols.w.data_ptr(),
+        rows.lo.data_ptr(), rows.hi.data_ptr(), cols.lo.data_ptr(),
+        cols.hi.data_ptr(), n, x.shape[1], x.shape[2], c, hout, wout,
+        rows.idx.shape[0], cols.idx.shape[0], rows.tile, cols.tile,
+        rows.span, cols.span, _stream(x))
+    build.check(lib, err, 'sepfilter_taps')
+    sepfilter_taps.launches += 1
+    return out
+
+
 def _check(x: torch.Tensor, kcol: torch.Tensor, krow: torch.Tensor,
            name: str = 'x') -> None:
     if x.dim() != 4 or x.dtype != torch.float32:
@@ -118,21 +323,17 @@ def _check(x: torch.Tensor, kcol: torch.Tensor, krow: torch.Tensor,
                              f'{x.device}')
 
 
-def _on_cuda(what: str, kcol, krow, *tensors) -> bool:
-    """False for CPU tensors (the plain version runs); True where the
-    kernel launches; raises for what the kernel does not take."""
-    x = tensors[0]
+def _check_device(kcol, krow, x) -> None:
+    """Raise for a device, or on CUDA for taps, that the kernels do not
+    take (a CPU tensor runs the plain version)."""
     if x.device.type == 'cpu':
-        return False
+        return
     if x.device.type != 'cuda':
         raise ValueError(f'unsupported device {x.device}')
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(f'{what} has no backward on CUDA')
     kh, kw = kcol.numel(), krow.numel()
     if kh % 2 == 0 or kw % 2 == 0:
         raise NotImplementedError(
             f'the CUDA kernel takes odd tap counts only, got {kh} x {kw}')
-    return True
 
 
 def _check_smem(smem: int, what: str) -> None:
@@ -145,16 +346,7 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def sepfilter_edge(x: torch.Tensor, kcol: torch.Tensor, krow: torch.Tensor
-                   ) -> torch.Tensor:
-    """Separable edge-clamped correlation of fp32 NHWC ``x``.
-
-    A CPU tensor goes to :func:`sepfilter_edge_plain`; a CUDA tensor
-    launches the kernel, which takes odd tap counts only and no gradient.
-    """
-    _check(x, kcol, krow)
-    if not _on_cuda('sepfilter_edge', kcol, krow, x):
-        return sepfilter_edge_plain(x, kcol, krow)
+def _edge_kernel(x, kcol, krow):
     kh, kw = kcol.numel(), krow.numel()
     b, h, w, c = x.shape
     lib = build.load('sepfilter', _SIGNATURES)
@@ -170,14 +362,7 @@ def sepfilter_edge(x: torch.Tensor, kcol: torch.Tensor, krow: torch.Tensor
     return out
 
 
-def sepfilter_down(x: torch.Tensor, kcol: torch.Tensor, krow: torch.Tensor,
-                   sf: int, pre: tuple[int, int]) -> torch.Tensor:
-    """``aliased_subsample(sepfilter_edge(x, kcol, krow), sf, pre)``: HR in,
-    LR out.  CPU: :func:`sepfilter_down_plain`; CUDA: the down kernel, which
-    computes the kept outputs only."""
-    _check(x, kcol, krow)
-    if not _on_cuda('sepfilter_down', kcol, krow, x):
-        return sepfilter_down_plain(x, kcol, krow, sf, pre)
+def _down_kernel(x, kcol, krow, sf, pre):
     kh, kw = kcol.numel(), krow.numel()
     b, h, w, c = x.shape
     ho, wo = len(range(pre[0], h, sf)), len(range(pre[1], w, sf))
@@ -196,28 +381,8 @@ def sepfilter_down(x: torch.Tensor, kcol: torch.Tensor, krow: torch.Tensor,
     return out
 
 
-def sepfilter_up(a: torch.Tensor, kcol: torch.Tensor, krow: torch.Tensor,
-                 sf: int, pre: tuple[int, int], b: torch.Tensor | None = None,
-                 g: torch.Tensor | None = None) -> torch.Tensor:
-    """``sepfilter_edge(zero_stuff(a, sf, pre), kcol, krow)``: LR in, HR
-    out.  With ``b`` (LR, as ``a``) and ``g`` (HR): ``U(a) + (g - U(b))``.
-    CPU: :func:`sepfilter_up_plain`; CUDA: the up kernel, which multiplies
-    only the taps that land on data."""
-    _check(a, kcol, krow, 'a')
-    if (b is None) != (g is None):
-        raise ValueError('pass b and g together, or neither')
+def _up_kernel(a, kcol, krow, sf, pre, b=None, g=None):
     n, h, w, c = a.shape
-    tensors = (a,)
-    if b is not None:
-        _check(b, kcol, krow, 'b')
-        _check(g, kcol, krow, 'g')
-        if b.shape != a.shape or g.shape != (n, h * sf, w * sf, c):
-            raise ValueError(f'b {tuple(b.shape)} must match a '
-                             f'{tuple(a.shape)} and g {tuple(g.shape)} be '
-                             f'its x{sf} size')
-        tensors = (a, b, g)
-    if not _on_cuda('sepfilter_up', kcol, krow, *tensors):
-        return sepfilter_up_plain(a, kcol, krow, sf, pre, b, g)
     kh, kw = kcol.numel(), krow.numel()
     rtab, maxr = _up_tables(h, sf, pre[0], kh, a.device)
     ctab, maxc = _up_tables(w, sf, pre[1], kw, a.device)
@@ -238,9 +403,141 @@ def sepfilter_up(a: torch.Tensor, kcol: torch.Tensor, krow: torch.Tensor,
     return out
 
 
+def _maps(kind, kcol, krow, sf, pre, n_h, n_w, adjoint=None):
+    """``(A, A^T)`` for the map ``kind`` (``'E'``, ``'D'``, ``'U'``) on
+    inputs of ``n_h x n_w``, each a function of one NHWC tensor: ``A`` is
+    the plain version on the CPU and the kernel on CUDA, ``A^T``
+    :func:`sepfilter_taps` on the tables of ``adjoint`` (made from the
+    taps when None), float64 weights for float64 input (the plain
+    version), fp32 otherwise."""
+    plain, kernel, extra = {
+        'E': (sepfilter_edge_plain, _edge_kernel, ()),
+        'D': (sepfilter_down_plain, _down_kernel, (sf, pre)),
+        'U': (sepfilter_up_plain, _up_kernel, (sf, pre))}[kind]
+
+    def forward(x):
+        return (plain if x.device.type == 'cpu' else kernel)(
+            x, kcol, krow, *extra)
+
+    def transpose(y):
+        tabs = adjoint if adjoint is not None else \
+            AdjointTables.of(kcol, krow)
+        dtype = torch.float64 if y.dtype == torch.float64 else torch.float32
+        return sepfilter_taps(y, *tabs.get(kind, n_h, n_w, sf, pre,
+                                           y.device, dtype))
+    return forward, transpose
+
+
+class _Linear(torch.autograd.Function):
+    """``A x`` for a linear map given as ``(A, A^T)``: the backward applies
+    ``A^T`` through this Function with the two swapped, so the adjoint's
+    own backward is ``A`` again (gradients of gradients)."""
+
+    @staticmethod
+    def forward(ctx, x, a, a_t):
+        ctx.maps = (a, a_t)
+        return a(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        a, a_t = ctx.maps
+        return _Linear.apply(gy.contiguous(), a_t, a), None, None
+
+
+def _linear(kind, x, kcol, krow, sf=1, pre=(0, 0), adjoint=None):
+    return _Linear.apply(x, *_maps(kind, kcol, krow, sf, pre, x.shape[1],
+                                   x.shape[2], adjoint))
+
+
+class _UpCombine(torch.autograd.Function):
+    """``U a + (g - U b)``; the gradients of ``a`` and ``b`` share one
+    ``U^T`` (``a_bar = U^T g_bar``, ``b_bar = -a_bar``, ``g`` passes
+    ``g_bar`` through)."""
+
+    @staticmethod
+    def forward(ctx, a, b, g, combine, u, u_t):
+        ctx.maps = (u, u_t)
+        return combine(a, b, g)
+
+    @staticmethod
+    def backward(ctx, gy):
+        u, u_t = ctx.maps
+        need_a, need_b, need_g = ctx.needs_input_grad[:3]
+        ga = gb = None
+        if need_a or need_b:
+            t = _Linear.apply(gy.contiguous(), u_t, u)
+            ga = t if need_a else None
+            gb = -t if need_b else None
+        return ga, gb, gy if need_g else None, None, None, None
+
+
+def _up_combine(a, b, g, kcol, krow, sf, pre, adjoint=None):
+    def combine(a, b, g):
+        if a.device.type == 'cpu':
+            return sepfilter_up_plain(a, kcol, krow, sf, pre, b, g)
+        return _up_kernel(a, kcol, krow, sf, pre, b, g)
+    return _UpCombine.apply(a, b, g, combine,
+                            *_maps('U', kcol, krow, sf, pre, a.shape[1],
+                                   a.shape[2], adjoint))
+
+
+def sepfilter_edge(x: torch.Tensor, kcol: torch.Tensor, krow: torch.Tensor,
+                   adjoint: AdjointTables | None = None) -> torch.Tensor:
+    """Separable edge-clamped correlation of fp32 NHWC ``x``.
+
+    A CPU tensor goes to :func:`sepfilter_edge_plain`; a CUDA tensor
+    launches the kernel, which takes odd tap counts only.  Differentiable in
+    ``x`` (the taps take no gradient): the backward launches
+    :func:`sepfilter_taps` on CUDA, on the tables of ``adjoint`` (the
+    taps' :class:`AdjointTables`; made from the taps when None).
+    """
+    _check(x, kcol, krow)
+    _check_device(kcol, krow, x)
+    return _linear('E', x, kcol, krow, adjoint=adjoint)
+
+
+def sepfilter_down(x: torch.Tensor, kcol: torch.Tensor, krow: torch.Tensor,
+                   sf: int, pre: tuple[int, int],
+                   adjoint: AdjointTables | None = None) -> torch.Tensor:
+    """``aliased_subsample(sepfilter_edge(x, kcol, krow), sf, pre)``: HR in,
+    LR out.  CPU: :func:`sepfilter_down_plain`; CUDA: the down kernel, which
+    computes the kept outputs only.  Differentiable in ``x``, as
+    :func:`sepfilter_edge`."""
+    _check(x, kcol, krow)
+    _check_device(kcol, krow, x)
+    return _linear('D', x, kcol, krow, sf, tuple(pre), adjoint)
+
+
+def sepfilter_up(a: torch.Tensor, kcol: torch.Tensor, krow: torch.Tensor,
+                 sf: int, pre: tuple[int, int], b: torch.Tensor | None = None,
+                 g: torch.Tensor | None = None,
+                 adjoint: AdjointTables | None = None) -> torch.Tensor:
+    """``sepfilter_edge(zero_stuff(a, sf, pre), kcol, krow)``: LR in, HR
+    out.  With ``b`` (LR, as ``a``) and ``g`` (HR): ``U(a) + (g - U(b))``.
+    CPU: :func:`sepfilter_up_plain`; CUDA: the up kernel, which multiplies
+    only the taps that land on data.  Differentiable in ``a``, ``b`` and
+    ``g``, as :func:`sepfilter_edge`."""
+    _check(a, kcol, krow, 'a')
+    if (b is None) != (g is None):
+        raise ValueError('pass b and g together, or neither')
+    n, h, w, c = a.shape
+    if b is not None:
+        _check(b, kcol, krow, 'b')
+        _check(g, kcol, krow, 'g')
+        if b.shape != a.shape or g.shape != (n, h * sf, w * sf, c):
+            raise ValueError(f'b {tuple(b.shape)} must match a '
+                             f'{tuple(a.shape)} and g {tuple(g.shape)} be '
+                             f'its x{sf} size')
+    _check_device(kcol, krow, a)
+    if b is None:
+        return _linear('U', a, kcol, krow, sf, tuple(pre), adjoint)
+    return _up_combine(a, b, g, kcol, krow, sf, tuple(pre), adjoint)
+
+
 sepfilter_edge.launches = 0
 sepfilter_down.launches = 0
 sepfilter_up.launches = 0
+sepfilter_taps.launches = 0
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -251,4 +548,6 @@ _SIGNATURES = {
     'exsr_sepfilter_down_smem': ([_I] * 4, ctypes.c_size_t),
     'exsr_sepfilter_up': ([_P] * 8 + [_I] * 11 + [_P], _I),
     'exsr_sepfilter_up_smem': ([_I] * 7, ctypes.c_size_t),
+    'exsr_sepfilter_taps': ([_P] * 10 + [_I] * 12 + [_P], _I),
+    'exsr_sepfilter_taps_smem': ([_I] * 4, ctypes.c_size_t),
 }

@@ -22,6 +22,17 @@ the tensor cores (``mma.sync``, fragments by ``ldmatrix``, ``w4`` staged
 once per block) and its epilogue.  Every input is read once and ``out``
 written once.  The fp32 kernel keeps an fp32 FMA conv (TF32 is off in the
 port).
+
+Gradients.  :func:`stage4` is a ``torch.autograd.Function`` on both
+devices.  Its backward for ``g = d loss / d out`` is ``x_bar = g``, ``s =
+0.2 * g`` in the compute dtype (bf16(0.2) in bf16, as the forward scales),
+``P_bar_g = s`` on channels ``[:nf]`` and zero beyond, and ``c3_bar =
+conv3x3^T(s, w4)`` (``w4_bar`` and ``b4_bar`` only when asked for).  The
+transposed conv is a plain cuDNN call (``torch.nn.grad.conv2d_input``),
+not a kernel of this port: the TPU kernel has no backward, and ``exsr``
+computes this gradient with XLA, outside any Pallas kernel.  In fp32 it
+runs with TF32 off, as the forward's FMA conv does.  The backward reads no
+P buffer, so none is saved.
 """
 from __future__ import annotations
 
@@ -30,19 +41,21 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from exsr_torch.ops.filters import to_nchw, to_nhwc
+from exsr_torch.ops.filters import no_tf32, to_nchw, to_nhwc
 from exsr_torch.ops.kernels import build
 
 
 def stage4_plain(c3, p0, p1, p2, p3, x, w4, b4):
-    """Plain PyTorch version: ``F.conv2d`` in fp32 on the dtype's values,
-    plus the slice sums, in the kernel's rounding order."""
+    """Plain PyTorch version: ``F.conv2d`` in fp32 (float64 for float64
+    inputs) on the dtype's values, plus the slice sums, in the kernel's
+    rounding order."""
     nf = x.shape[-1]
-    w = w4.to(c3.dtype).float().permute(3, 2, 0, 1)  # HWIO -> OIHW
-    conv = to_nhwc(F.conv2d(to_nchw(c3).float(), w, padding=1))
-    partial = (p0[..., :nf].float() + p1[..., :nf].float()
-               + p2[..., :nf].float() + p3[..., :nf].float())
-    return ((conv + b4.float()) + partial).mul(0.2).to(x.dtype) + x
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    w = w4.to(c3.dtype).to(acc).permute(3, 2, 0, 1)  # HWIO -> OIHW
+    conv = to_nhwc(F.conv2d(to_nchw(c3).to(acc), w, padding=1))
+    partial = (p0[..., :nf].to(acc) + p1[..., :nf].to(acc)
+               + p2[..., :nf].to(acc) + p3[..., :nf].to(acc))
+    return ((conv + b4.to(acc)) + partial).mul(0.2).to(x.dtype) + x
 
 
 def _check(c3, ps, x, w4, b4) -> None:
@@ -75,23 +88,7 @@ def _check(c3, ps, x, w4, b4) -> None:
             raise ValueError(f'{name} is on {t.device}, x on {x.device}')
 
 
-def stage4(c3, p0, p1, p2, p3, x, w4, b4, row_chunk: int | None = None):
-    """``0.2*(conv3x3(c3, w4) + b4 + sum_g p_g[..., :nf]) + x``.
-
-    ``row_chunk`` is accepted for ``stage4_pallas_chunked``'s API and does
-    nothing: the chunking existed only for a Mosaic compile limit.  A CPU
-    tensor goes to :func:`stage4_plain`; a CUDA tensor launches the kernel
-    (no gradient).
-    """
-    ps = (p0, p1, p2, p3)
-    _check(c3, ps, x, w4, b4)
-    if x.device.type == 'cpu':
-        return stage4_plain(c3, p0, p1, p2, p3, x, w4, b4)
-    if x.device.type != 'cuda':
-        raise ValueError(f'unsupported device {x.device}')
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (c3, x, w4, b4) + ps):
-        raise NotImplementedError('stage4 has no backward on CUDA')
+def _stage4_kernel(c3, ps, x, w4, b4):
     b, h, w, gc = c3.shape
     nf = x.shape[-1]
     if nf % 16 or nf > 64 or gc % 2:
@@ -112,13 +109,70 @@ def stage4(c3, p0, p1, p2, p3, x, w4, b4, row_chunk: int | None = None):
     if any(t.data_ptr() % 16 for t in (c3, x, w4, out) + ps):
         raise ValueError('tensors must be 16-byte aligned')
     err = lib.exsr_stage4(
-        c3.data_ptr(), p0.data_ptr(), p1.data_ptr(), p2.data_ptr(),
-        p3.data_ptr(), x.data_ptr(), w4.data_ptr(), b4.data_ptr(),
-        out.data_ptr(), b, h, w, gc, nf, *(p.shape[-1] for p in ps),
-        is_bf16, torch.cuda.current_stream(x.device).cuda_stream)
+        c3.data_ptr(), *(p.data_ptr() for p in ps), x.data_ptr(),
+        w4.data_ptr(), b4.data_ptr(), out.data_ptr(), b, h, w, gc, nf,
+        *(p.shape[-1] for p in ps), is_bf16,
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, 'stage4')
     stage4.launches += 1
     return out
+
+
+class _Stage4(torch.autograd.Function):
+    """The kernel (its plain version on the CPU) and the backward of the
+    module's docstring."""
+
+    @staticmethod
+    def forward(ctx, c3, p0, p1, p2, p3, x, w4, b4):
+        ps = (p0, p1, p2, p3)
+        ctx.widths = tuple(p.shape[-1] for p in ps)
+        ctx.c3_shape, ctx.b4_dtype = c3.shape, b4.dtype
+        ctx.save_for_backward(w4, c3 if ctx.needs_input_grad[6] else None)
+        if x.device.type == 'cpu':
+            return stage4_plain(c3, *ps, x, w4, b4)
+        return _stage4_kernel(c3, ps, x, w4, b4)
+
+    @staticmethod
+    def backward(ctx, g):
+        w4, c3 = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        nf = g.shape[-1]
+        s = g * torch.tensor(0.2, dtype=g.dtype).item()
+        w = w4.to(g.dtype).permute(3, 2, 0, 1)  # HWIO -> OIHW
+        grads = [None] * 8
+        with no_tf32():
+            if need[0]:
+                b, h, wd, gc = ctx.c3_shape
+                grads[0] = to_nhwc(torch.nn.grad.conv2d_input(
+                    (b, gc, h, wd), w, to_nchw(s), padding=1))
+            if need[6]:
+                gw = torch.nn.grad.conv2d_weight(
+                    to_nchw(c3.to(g.dtype)), w.shape, to_nchw(s), padding=1)
+                grads[6] = gw.permute(2, 3, 1, 0).to(w4.dtype)
+        for k in range(4):
+            if need[1 + k]:
+                grads[1 + k] = F.pad(s, (0, ctx.widths[k] - nf))
+        if need[5]:
+            grads[5] = g
+        if need[7]:
+            grads[7] = s.to(ctx.b4_dtype).sum((0, 1, 2))
+        return tuple(grads)
+
+
+def stage4(c3, p0, p1, p2, p3, x, w4, b4, row_chunk: int | None = None):
+    """``0.2*(conv3x3(c3, w4) + b4 + sum_g p_g[..., :nf]) + x``.
+
+    ``row_chunk`` is accepted for ``stage4_pallas_chunked``'s API and does
+    nothing: the chunking existed only for a Mosaic compile limit.  A CPU
+    tensor goes to :func:`stage4_plain`; a CUDA tensor launches the kernel.
+    Differentiable in every input (the backward is in the module's
+    docstring).
+    """
+    ps = (p0, p1, p2, p3)
+    _check(c3, ps, x, w4, b4)
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'unsupported device {x.device}')
+    return _Stage4.apply(c3, *ps, x, w4, b4)
 
 
 stage4.launches = 0

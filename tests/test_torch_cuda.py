@@ -302,19 +302,14 @@ def test_fused_rrdbnet_on_cuda_matches_cpu(cuda):
 
 
 def test_kernels_refuse_gradients(cuda):
+    """The fused RDB kernel still has no backward (the fused trunk is for
+    inference, as exsr's pallas_trunk); the CEM filter's entry points and
+    the stage-4 epilogue take gradients since their backwards exist."""
     x = torch.rand(1, 8, 8, 3, device=cuda, requires_grad=True)
     k = torch.ones(3, device=cuda)
-    with pytest.raises(NotImplementedError, match='backward'):
-        sepfilter_edge(x, k, k)
-    with pytest.raises(NotImplementedError, match='backward'):
-        sepfilter_down(x, k, k, 2, (0, 0))
-    with pytest.raises(NotImplementedError, match='backward'):
-        sepfilter_up(x, k, k, 2, (0, 0))
-    lr = torch.rand(1, 8, 8, 3, device=cuda)
-    with pytest.raises(NotImplementedError, match='backward'):
-        sepfilter_up(lr, k, k, 2, (0, 0), b=lr,
-                     g=torch.rand(1, 16, 16, 3, device=cuda,
-                                  requires_grad=True))
+    for y in (sepfilter_edge(x, k, k), sepfilter_down(x, k, k, 2, (0, 0)),
+              sepfilter_up(x, k, k, 2, (0, 0))):
+        assert y.requires_grad
     gen = torch.Generator(device=cuda).manual_seed(9)
     wts = _rdb_weights(gen, 16, 8, 3, torch.float32, cuda)
     xr = torch.rand(1, 8, 8, 16, device=cuda, requires_grad=True)
@@ -325,6 +320,146 @@ def test_kernels_refuse_gradients(cuda):
     with pytest.raises(NotImplementedError, match='backward'):
         net(torch.rand(1, 8, 8, 3, device=cuda),
             torch.rand(1, 32, 32, 3, device=cuda))
+
+
+# (kind, sf, pre, taps, (h, w) of the forward's input): every sf of the
+# bicubic CEM at both extreme sub-positions, the CEM's tap counts, ragged
+# sizes, tiles cut short, and axes shorter than the taps
+TAPS_GRID = (
+    [('E', 1, 0, k, hw) for k in (9, 11, 17, 27, 33)
+     for hw in ((13, 21), (3, 2), (70, 130))]
+    + [(kind, sf, pre, k, hw) for sf in (2, 3, 4, 8) for pre in (0, sf - 1)
+       for kind, k, hw in (('D', 9, (5 * sf + 1, 3 * sf)),
+                           ('D', 17, (sf, sf + 1)),
+                           ('D', 33, (37 * sf + 3, 19 * sf)),
+                           ('U', 11, (5, 3)), ('U', 17, (2, 1)),
+                           ('U', 33, (37, 70)))]
+)
+
+
+@pytest.mark.parametrize('kind,sf,pre,k,hw', TAPS_GRID)
+def test_sepfilter_taps_matches_plain(cuda, kind, sf, pre, k, hw):
+    """The adjoint kernel against its plain version on the same tables,
+    fp32, 1e-5 of the largest output (the sums run in another order)."""
+    from exsr_torch.ops.kernels import sepfilter as S
+    gen = torch.Generator(device=cuda).manual_seed(k + 100 * sf + pre)
+    kcol, krow = _rand(gen, k), _rand(gen, k)
+    h, w = hw
+    n_out = {'E': (h, w), 'D': (len(range(pre, h, sf)),
+                                len(range(pre, w, sf))),
+             'U': (h * sf, w * sf)}[kind]
+    for c in (1, 3):
+        y = torch.rand(2, *n_out, c, generator=gen, device=cuda)
+        tabs = S.AdjointTables.of(kcol, krow).get(kind, h, w, sf,
+                                                  (pre, pre), cuda)
+        before = S.sepfilter_taps.launches
+        out = S.sepfilter_taps(y, *tabs)
+        torch.cuda.synchronize()
+        assert S.sepfilter_taps.launches == before + 1
+        ref = S.sepfilter_taps_plain(y, *tabs)
+        assert out.shape == (2, h, w, c)
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def _grads(fn, inputs, cot):
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    fn(*leaves).backward(cot)
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize('sf', [2, 4, 8])
+def test_sepfilter_gradients_on_cuda_match_cpu(cuda, sf):
+    """Each CEM filter entry point's gradient through the kernels on the
+    card against the plain route on the CPU, 1e-5 of the largest; the
+    backward launches one sepfilter_taps per adjoint."""
+    from exsr_torch.ops.kernels import sepfilter as S
+    filt = {d: CEM.create(CEMConf(scale_factor=sf)).device_filters(
+        3, device=d) for d in ('cpu', cuda)}
+    rng = np.random.default_rng(sf)
+    lr = torch.from_numpy(rng.uniform(size=(2, 13, 21, 3)).astype('f'))
+    hr = torch.from_numpy(rng.uniform(size=(2, 13 * sf, 21 * sf, 3))
+                          .astype('f'))
+    cases = [('conv_inv_hth', (lr,), lr, 1), ('downscale', (hr,), lr, 1),
+             ('upscale', (lr,), hr, 1), ('enforce', (lr, hr), hr, 1)]
+    for name, inputs, cot_like, taps in cases:
+        cot = torch.from_numpy(rng.normal(size=cot_like.shape).astype('f'))
+        ref = _grads(getattr(filt['cpu'], name), inputs, cot)
+        before = S.sepfilter_taps.launches
+        got = _grads(getattr(filt[cuda], name),
+                     [t.to(cuda) for t in inputs], cot.to(cuda))
+        torch.cuda.synchronize()
+        # enforce: one U^T for both of its LR inputs, then E^T and D^T
+        n = {'enforce': 4}.get(name, taps)
+        assert S.sepfilter_taps.launches - before == n, name
+        for g, r in zip(got, ref):
+            assert (g.cpu() - r).abs().max() <= 1e-5 * r.abs().max(), name
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_stage4_backward_on_cuda_matches_cpu(cuda, dtype):
+    """The stage-4 Function's gradients on the card (kernel forward, cuDNN
+    transposed conv) against the CPU's: x and the P buffers exactly (0.2 g
+    in the dtype), c3 to 1e-5 of the largest in fp32 and to one bf16 ulp
+    of the largest in bf16 (fp32 sums in another order, then rounded)."""
+    gen = torch.Generator().manual_seed(3)
+    nf, gc = 32, 16
+    c3 = torch.randn(2, 9, 11, gc, generator=gen).to(dtype)
+    ps = [torch.randn(2, 9, 11, nf + k * gc, generator=gen).to(dtype)
+          for k in (4, 3, 2, 1)]
+    x = torch.randn(2, 9, 11, nf, generator=gen).to(dtype)
+    w4 = (torch.randn(3, 3, gc, nf, generator=gen) * 0.1).to(dtype)
+    b4 = torch.randn(nf, generator=gen)
+    cot = torch.randn(2, 9, 11, nf, generator=gen).to(dtype)
+    inputs = (c3, *ps, x)
+
+    def fn(*a):
+        return stage4(*a, w4.to(a[0].device), b4.to(a[0].device))
+    ref = _grads(fn, inputs, cot)
+    before = stage4.launches
+    got = _grads(fn, [t.to(cuda) for t in inputs], cot.to(cuda))
+    torch.cuda.synchronize()
+    assert stage4.launches == before + 1
+    for g, r in zip(got[1:], ref[1:]):
+        assert torch.equal(g.cpu(), r)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    err = (got[0].cpu().float() - ref[0].float()).abs().max()
+    assert err <= tol * ref[0].float().abs().max()
+
+
+def test_edit_session_step_on_cuda(cuda):
+    """One EditSession l1 round (5 steps) at nb 2 on CUDA: every step runs
+    the kernels forward and backward (2 / 1 / 1 CEM filters, 3 * nb
+    stage-4, 3 sepfilter_taps), the loss falls, and its history matches
+    the same session on the CPU to 1e-5 of the first loss."""
+    from exsr_torch.apps.session import EditSession
+    from exsr_torch.ops.kernels.sepfilter import sepfilter_taps
+    img = np.random.default_rng(4).uniform(size=(96, 96, 3)) \
+        .astype(np.float32)
+    mask = np.zeros((96, 96), np.float32)
+    mask[40:56, 40:56] = 1.0
+    results = {}
+    for dev in ('cpu', cuda):
+        s = EditSession(scale=4, nb=2, nf=16, device=dev,
+                        time_budget_s=120.0)
+        s.init_random_params(0)
+        s.open_image(img)
+        s.set_region(mask)
+        desired = s.sr.copy()
+        desired[:, 40:56, 40:56] = 0.7
+        counted = (sepfilter_edge, sepfilter_down, sepfilter_up, stage4,
+                   sepfilter_taps)
+        for f in counted:
+            f.launches = 0
+        res = s.optimize('l1', data={'desired': desired}, max_iters=5)
+        torch.cuda.synchronize()
+        results[str(dev)] = (res, tuple(f.launches for f in counted))
+    (rc, lc), (rg, lg) = results['cpu'], results[str(cuda)]
+    assert lc == (0, 0, 0, 0, 0)
+    # 5 steps and the view's forward; 3 adjoints per backward
+    assert lg == (2 * 6, 6, 6, 6 * 6, 3 * 5)
+    lt, lr_ = np.asarray(rg['losses']), np.asarray(rc['losses'])
+    assert lt.shape == (5,) and lt[-1] < lt[0]
+    assert np.abs(lt - lr_).max() <= 1e-5 * lr_[0]
 
 
 def test_cem_chain_on_cuda_matches_cpu_and_is_consistent(cuda):

@@ -24,6 +24,10 @@ def test_every_module_imports_with_jax_and_exsr_blocked():
     mods = list(_modules())
     assert 'exsr_torch.ops.kernels.stage4' in mods
     assert 'exsr_torch.ops.kernels.rrdb_block' in mods
+    for m in ('apps.session', 'zopt.optimizer', 'zopt.objectives',
+              'zopt.histogram', 'zopt.patches', 'ops.structure_tensor',
+              'utils.misc'):
+        assert f'exsr_torch.{m}' in mods
     blocked = '; '.join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
     code = (f'import sys; {blocked}; import importlib; '
             f'[importlib.import_module(m) for m in {mods!r}]; '
