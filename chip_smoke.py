@@ -47,6 +47,24 @@ Phases, one JSON line each:
    the CEM filter's entry points and adjoints), one profiled round, and the
    full-width edit gradient on the card against the CPU's (fp32 on a small
    crop; bf16 on the window-16 crop, within twice the CPU's own bf16 gap).
+8. eval_cli: the batch-evaluation CLI, ``exsr_torch.apps.eval_sr.main``,
+   at full width (nb 23, nf 64, nz 3, x4) on three seeded synthetic
+   512 x 512 PNGs with the LR synthesized (128): an 8-sample
+   ``uniform_sweep`` with images, diversity maps and 3-frame Z-sweep GIFs
+   (launches per forward, every summary key finite, every SR output on the
+   card until ``tensor2img``), one image through the ``desired_im``
+   optimizer mode (10 steps: 3 ``sepfilter_taps`` a step, a falling loss),
+   a port checkpoint round trip through ``build_model`` (bit-equal), and
+   ``MSRResNet`` and ``sr_resnet`` at nb 16, nf 64, LR 128 on the card
+   against the CPU (1e-4);
+9. batch sweep: ms per forward of ``build_model(4)`` (fp32, CEM,
+   pre-padded) at LR 128 and batches 1-64, the table that
+   ``exsr_torch.utils.serve.MS_PER_FWD`` holds;
+10. even taps: the CEM filter's entry points with the 4-tap down and up
+   filters of an estimated x3 kernel at LR 128, batch 16, against their
+   plain versions (0.0, the shapes equal) and their adjoints (1e-5 of the
+   largest output), and ``CEMFilters.enforce`` raising on the grown shape,
+   as ``exsr``'s fails.
 
 Phase 3 also checks and times ``sepfilter_taps``, the CEM filter's adjoint
 kernel, at the edit shape and at the main path's batch-16 shapes.
@@ -75,6 +93,18 @@ EDIT_TAPS_LR = 56  # the window-32 crop, where phase 3 times the adjoints
 # each step's)
 EDIT_FILTER_CASES = ('sepfilter_edge[lr]', 'sepfilter_down',
                      'sepfilter_up[combine]')
+# the CEM filter's entry points with the even taps of an estimated x3 kernel
+EVEN_CASES = ('sepfilter_edge[hr]', 'sepfilter_edge[lr]', 'sepfilter_down',
+              'sepfilter_up[up]', 'sepfilter_up[combine]')
+# the even-tap case beside each entry point's row of the kernels line (the
+# 4-tap filters: the same-size kernel at HR, the up kernel combined)
+EVEN_ROW = {'edge': 'sepfilter_edge[hr]', 'down': 'sepfilter_down',
+            'up': 'sepfilter_up[combine]'}
+# the evaluation CLI: images, their HR size, the Z sweep, the GIF frames
+# and the optimizer mode's iterations; the batch sweep behind MS_PER_FWD
+EVAL_IMAGES, EVAL_HR, EVAL_NUM_Z, EVAL_GIF, EVAL_ITERS = 3, 512, 8, 3, 10
+SWEEP_BATCHES, SWEEP_REPS = (1, 2, 4, 8, 16, 32, 64), 3
+SWEEP_PROFILED = (1, 8)
 
 
 def emit(phase: str, **fields) -> None:
@@ -823,6 +853,257 @@ def phase_serving():
     return launches
 
 
+def phase_even_taps(device):
+    """The CEM filter's entry points and adjoints with even tap counts, on
+    the card against their plain versions: the x3 CEM of an estimated
+    13 x 13 Gaussian kernel (sigma 1), whose down and up filters have 4
+    taps, at LR 128 and batch 16.  An even tap count grows the same-size
+    and up filters' outputs by one pixel, as exsr's filters do; exsr's
+    enforce then fails on the shapes, and so does the port's."""
+    import torch
+    from exsr_torch.cem.cem import CEM, CEMConf
+    from exsr_torch.ops.resize import gaussian_2d
+    cem = CEM.create(CEMConf(scale_factor=3),
+                     upscale_kernel=gaussian_2d(1.0, 13))
+    filt = cem.device_filters(3, device=device)
+    taps = {k: [t.numel() for t in getattr(filt, k)]
+            for k in ('w_down_1d', 'w_up_1d', 'w_inv_hth_1d')}
+    check(taps['w_down_1d'] == [4, 4] and taps['w_up_1d'] == [4, 4],
+          f'expected 4-tap down and up filters, got {taps}')
+    gen = torch.Generator(device=device).manual_seed(9)
+    kern = sepfilter_kernels(filt, gen, device, BATCH, LR,
+                             cases=EVEN_CASES, graph_hr=True)
+    for name, rec in kern.items():
+        # the kernels take the taps in the plain version's order
+        check(rec['max_abs_err'] <= 0.0,
+              f'even taps: {name} differs from its plain version by '
+              f'{rec["max_abs_err"]}')
+        emit('even_taps', name=name, **rec)
+    adj = sepfilter_taps_kernels(filt, gen, device, BATCH, LR)
+    for kind, rec in adj.items():
+        emit('even_taps', name=f'sepfilter_taps[{kind}]', **rec)
+    lr = torch.rand(1, LR, LR, 3, generator=gen, device=device)
+    g = torch.rand(1, 3 * LR, 3 * LR, 3, generator=gen, device=device)
+    try:
+        filt.enforce(lr, g)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    check(raised is not None, 'enforce took a g of another size than the '
+          'even up filter\'s output')
+    emit('even_taps', name='cem_enforce', raises=raised[:120],
+         taps=taps)
+    return kern, adj
+
+
+def _write_pngs(directory, n, size, seed):
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        # smooth content plus noise: a test image, not white noise
+        yy, xx = np.mgrid[:size, :size] / size
+        base = np.stack([np.sin(2 * np.pi * (f * yy + g * xx))
+                         for f, g in rng.uniform(0.5, 4, size=(3, 2))], -1)
+        img = 0.5 + 0.35 * base + 0.1 * rng.standard_normal(base.shape)
+        Image.fromarray((np.clip(img, 0, 1) * 255).round().astype(
+            np.uint8)).save(f'{directory}/im{i}.png')
+
+
+def phase_eval_cli(device, name):
+    """The batch-evaluation CLI at full width on the card: a Z sweep over
+    three 512 x 512 images, one image through the optimizer latent mode, a
+    checkpoint round trip, the plain SR architectures against the CPU, and
+    the batch sweep behind ``MS_PER_FWD``."""
+    import json as _json
+    import math
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from exsr_torch.apps import eval_sr
+    from exsr_torch.apps.session import EditSession
+    from exsr_torch.models.rrdb import RRDBNet
+    from exsr_torch.train.checkpoints import CheckpointManager
+
+    t_phase = time.perf_counter()
+    from exsr_torch.utils import color
+    seen, tensor2img = [], color.tensor2img
+
+    def recording(x, *a, **k):
+        seen.append(x.device.type if isinstance(x, torch.Tensor)
+                    else 'host')
+        return tensor2img(x, *a, **k)
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        hr_dir, out = f'{tmp}/hr', f'{tmp}/out'
+        os.makedirs(hr_dir)
+        _write_pngs(hr_dir, EVAL_IMAGES, EVAL_HR, seed=11)
+        color.tensor2img = recording
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            summary = eval_sr.main([
+                '--hr_dir', hr_dir, '--latent', 'uniform_sweep',
+                '--num_z', str(EVAL_NUM_Z), '--save_images',
+                '--save_std_map', '--z_sweep_gif', str(EVAL_GIF),
+                '--out_dir', out])
+            sweep_s = time.perf_counter() - t0
+        finally:
+            color.tensor2img = tensor2img
+        launches = read_launches()
+        forwards = EVAL_IMAGES * (1 + EVAL_GIF)
+        check(launches == per_forward(forwards, stage4=69),
+              f'eval_cli launches {launches} over {forwards} forwards')
+        keys = ('num_images', 'avg_psnr', 'avg_ssim', 'avg_consistency_mae',
+                'avg_per_pixel_std', 'avg_hr_std', 'avg_sr_high_freq_std')
+        check(all(k in summary and math.isfinite(summary[k]) for k in keys),
+              f'eval_cli summary {summary}')
+        check(summary['num_images'] == EVAL_IMAGES, 'eval_cli image count')
+        check(summary['avg_consistency_mae'] < 1e-5,
+              f'eval_cli consistency {summary["avg_consistency_mae"]}')
+        # SR outputs and GIF frames reach tensor2img on the card; the
+        # ground truth comes from the dataset, on the host
+        check(seen.count('cuda') == EVAL_IMAGES * (1 + EVAL_GIF)
+              and seen.count('host') == EVAL_IMAGES
+              and len(seen) == EVAL_IMAGES * (2 + EVAL_GIF),
+              f'tensor2img inputs {seen}')
+        for i in range(EVAL_IMAGES):
+            for suffix in ('_SR.png', '_STDmap.png', '_Zsweep.gif'):
+                check(os.path.exists(f'{out}/im{i}{suffix}'),
+                      f'missing im{i}{suffix}')
+        with open(f'{out}/summary.json') as f:
+            per_image = _json.load(f)['per_image']
+        results['sweep'] = dict(
+            images=EVAL_IMAGES, hr=EVAL_HR, num_z=EVAL_NUM_Z,
+            gif_frames=EVAL_GIF, launches=launches, forwards=forwards,
+            ms_per_image=[1e3 * r['time_s'] for r in per_image],
+            wall_s=sweep_s, summary=summary)
+
+        # the optimizer latent mode on one image; its result is read
+        # through a wrapper around EditSession.optimize
+        runs = []
+        optimize = EditSession.optimize
+
+        def recorded(self, *a, **k):
+            runs.append(optimize(self, *a, **k))
+            return runs[-1]
+        EditSession.optimize = recorded
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            opt_summary = eval_sr.main([
+                '--hr_dir', hr_dir, '--latent', 'desired_im',
+                '--num_z_iters', str(EVAL_ITERS), '--max_images', '1',
+                '--out_dir', f'{tmp}/optimizer'])
+            opt_s = time.perf_counter() - t0
+        finally:
+            EditSession.optimize = optimize
+        launches = read_launches()
+        losses = runs[0]['losses']
+        steps = len(losses)
+        # open_image's view forward, the steps, optimize's view forward
+        check(launches == per_forward(steps + 2, stage4=69,
+                                      backwards=steps),
+              f'eval_cli optimizer launches {launches} over {steps} steps')
+        check(steps == EVAL_ITERS and losses[-1] < losses[0],
+              f'eval_cli optimizer losses {losses}')
+        with open(f'{tmp}/optimizer/summary.json') as f:
+            opt_ms = 1e3 * _json.load(f)['per_image'][0]['time_s']
+        results['optimizer'] = dict(
+            latent='desired_im', steps=steps, launches=launches,
+            taps_per_step=launches['sepfilter_taps'] / steps,
+            first_loss=losses[0], last_loss=losses[-1], ms_per_image=opt_ms,
+            ms_per_step=opt_ms / steps, wall_s=opt_s, summary=opt_summary)
+
+        # checkpoint round trip on the card
+        net = RRDBNet(nf=64, nb=23, upscale=SCALE, latent_channels=3,
+                      seed=3)
+        CheckpointManager(f'{tmp}/ckpt').save(0, {'g_params':
+                                                  net.state_dict()})
+        gen = torch.Generator().manual_seed(13)
+        lr = torch.rand(1, 64, 64, 3, generator=gen)
+        z = torch.rand(1, 256, 256, 3, generator=gen) * 2 - 1
+        _, f_ckpt = eval_sr.build_model(SCALE, checkpoint=f'{tmp}/ckpt')
+        _, f_net = eval_sr.build_model(SCALE, params=net)
+        # cuDNN may pick convolution algorithms whose sums run in another
+        # order from one call to the next: bit-equality is asked of
+        # deterministic ones; the default's spread is recorded beside it
+        spread = (f_net(lr, z) - f_net(lr, z)).abs().max().item()
+        torch.backends.cudnn.deterministic = True
+        try:
+            a, b = f_ckpt(lr, z), f_net(lr, z)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        check(a.device.type == 'cuda' and torch.equal(a, b),
+              'checkpoint round trip differs')
+        results['checkpoint'] = dict(bit_equal=True, shape=list(a.shape),
+                                     cudnn_deterministic=True,
+                                     default_repeat_max_abs_diff=spread)
+        del f_ckpt, f_net, a, b, net
+
+    # the plain SR architectures at their full width, card against CPU
+    plain = {}
+    gen = torch.Generator().manual_seed(17)
+    lr = torch.rand(1, LR, LR, 3, generator=gen)
+    for arch, cls in eval_sr.PLAIN_ARCHS.items():
+        net = cls(nf=64, nb=16, upscale=SCALE, seed=5)
+        outs = {}
+        for dev in ('cpu', device):
+            _, fwd = eval_sr.build_model(SCALE, nb=16, nf=64,
+                                         latent_channels=0, device=dev,
+                                         params=net, arch=arch,
+                                         use_cem=False)
+            outs[str(dev)] = fwd(lr)
+        check(outs[str(device)].device.type == 'cuda', f'{arch} off card')
+        err = (outs[str(device)].cpu() - outs['cpu']).abs().max().item()
+        check(err <= 1e-4, f'{arch} card vs CPU max error {err} > 1e-4')
+        plain[arch] = dict(shape=list(outs['cpu'].shape), max_abs_err=err,
+                           tol=1e-4)
+    results['plain_archs'] = plain
+    results['phase_s'] = time.perf_counter() - t_phase
+    emit('eval_cli', device=name, **results)
+    return results
+
+
+def phase_batch_sweep(name):
+    """ms per forward of ``build_model(4)`` as served by default (fp32
+    trunk, CEM, pre-padded) at LR 128, by batch: the host clock around
+    each request ending in a synchronize, the median of warm repetitions.
+    This table is ``exsr_torch.utils.serve.MS_PER_FWD``.  The forwards at
+    batches 1 and 8 are also profiled: where the fp32 forward's time
+    goes."""
+    import torch
+    from exsr_torch.apps.eval_sr import build_model
+    _, forward = build_model(SCALE)
+    gen = torch.Generator(device='cuda').manual_seed(19)
+    table, profiles = {}, {}
+    for b in SWEEP_BATCHES:
+        lr = torch.rand(b, LR, LR, 3, generator=gen, device='cuda')
+        z = torch.rand(b, LR * SCALE, LR * SCALE, 3, generator=gen,
+                       device='cuda') * 2 - 1
+        forward(lr, z)  # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(SWEEP_REPS):
+            t0 = time.perf_counter()
+            forward(lr, z)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        table[b] = sorted(times)[len(times) // 2]
+        if b in SWEEP_PROFILED:
+            profiles[b] = profile_forward(lambda zz: forward(lr, zz), z)
+        del lr, z
+    torch.cuda.empty_cache()
+    emit('batch_sweep', device=name, lr=LR, scale=SCALE, trunk='fp32',
+         cem='fp32', pre_pad=True, reps=SWEEP_REPS, what='median ms per '
+         'forward', ms_per_fwd=table,
+         img_per_s={b: 1e3 * b / t for b, t in table.items()})
+    for b, prof in profiles.items():
+        emit('batch_sweep_profile', batch=b, **prof)
+    return table
+
+
 def taps_row(kern, edit_runs):
     """The CEM filter's adjoint kernel on the edit path: its three launches
     of one backward (U^T, E^T, D^T) at the window-32 crop, summed; the
@@ -887,6 +1168,9 @@ def main() -> int:
     del inputs
     phase_serving()
     edit_runs = phase_edit(device, name)
+    phase_eval_cli(device, name)
+    phase_batch_sweep(name)
+    even, even_taps = phase_even_taps(device)
 
     # launches: the total over the forwards of the path that runs the
     # kernel (the main path; the fused path for rdb)
@@ -906,7 +1190,10 @@ def main() -> int:
     hr = kern['sepfilter_edge[hr]']
     summary = [
         row(f'sepfilter_{k}', key, launches, forwards, **sep, **extra,
-            graph_ms=kern[key]['graph_ms'])
+            graph_ms=kern[key]['graph_ms'],
+            **{f'even_taps_{f}': even[EVEN_ROW[k]][f] for f in (
+                'taps', 'shape', 'max_abs_err', 'ms', 'graph_ms',
+                'bound_ms')})
         for k, key, extra in (
             ('edge', 'sepfilter_edge[lr]', {
                 'hr_ms': hr['ms'], 'hr_plain_ms': hr['plain_ms'],
@@ -919,7 +1206,14 @@ def main() -> int:
         row('rdb', 'rdb_bf16', fused_launches, fused_forwards,
             source='exsr_torch/csrc/rdb.cu',
             replaces='exsr/ops/pallas/rrdb_block.py:145', path='fused'),
-        taps_row(kern, edit_runs),
+        dict(taps_row(kern, edit_runs),
+             even_taps_max_rel_err=max(r['max_rel_err']
+                                       for r in even_taps.values()),
+             even_taps_ms=sum(r['ms'] for r in even_taps.values()),
+             even_taps_graph_ms=sum(r['graph_ms']
+                                    for r in even_taps.values()),
+             even_taps_bound_ms=sum(r['bound_ms']
+                                    for r in even_taps.values())),
     ]
     print(json.dumps({'kernels': summary}))
     print(smi)

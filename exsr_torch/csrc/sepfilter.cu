@@ -4,7 +4,12 @@
 // Replaces the TPU kernel sepfilter_edge_pallas (exsr/ops/pallas/sepfilter.py,
 // _sepfilter_kernel): y = rowpass(colpass(x)) on fp32 NHWC [B, H, W, C],
 // where the column pass correlates along H with kcol and the row pass along
-// W with krow, both with replicate (edge-clamped) borders and odd tap counts.
+// W with krow, both with replicate (edge-clamped) borders.  Output sample i
+// of an axis of n inputs and k taps reads inputs clamp(i - k/2 + r), r < k:
+// replicate padding by k/2 on both sides, then a VALID correlation, so an
+// even tap count grows the axis by one sample (n + 1 - k % 2 outputs, as
+// exsr/ops/filters.py filter_replicate_same).  The kernels take the output
+// sizes as runtime values; odd and even taps share one code path.
 // Three entry points:
 //
 //   sepfilter_edge  y, same size (the TPU kernel's own function);
@@ -154,14 +159,15 @@ template <int C_>
 __global__ void __launch_bounds__(kThreads)
 sepfilter_edge_kernel(const float* __restrict__ x, float* __restrict__ out,
                       const float* __restrict__ kcol,
-                      const float* __restrict__ krow, int H, int W, int Crt,
-                      int kh, int kw) {
+                      const float* __restrict__ krow, int H, int W, int Ho,
+                      int Wo, int Crt, int kh, int kw) {
   constexpr int TH = kEdgeTileH;
   const int C = C_ ? C_ : Crt;
   extern __shared__ float smem[];
   const int rh = kh / 2, rw = kw / 2;
   const int i0 = blockIdx.y * TH, j0 = blockIdx.x * kEdgeTileW;
   const size_t image = (size_t)blockIdx.z * H * W * C;
+  const size_t out_image = (size_t)blockIdx.z * Ho * Wo * C;
   const int xrows = TH + kh - 1;
   const int lx = (kEdgeTileW + kw - 1) * C;  // floats used in a tile row
   const int ld = lx | 1;                      // odd: lanes on rows spread
@@ -207,9 +213,9 @@ sepfilter_edge_kernel(const float* __restrict__ x, float* __restrict__ out,
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nf = min(kEdgeTileW, W - j0) * C;
-  for (int r = warp; r < TH && i0 + r < H; r += kWarps) {
-    float* dst = out + image + ((size_t)(i0 + r) * W + j0) * C;
+  const int nf = min(kEdgeTileW, Wo - j0) * C;
+  for (int r = warp; r < TH && i0 + r < Ho; r += kWarps) {
+    float* dst = out + out_image + ((size_t)(i0 + r) * Wo + j0) * C;
     for (int f = lane; f < nf; f += 32) dst[f] = s_o[r * lo + f];
   }
 }
@@ -302,7 +308,7 @@ struct UpArgs {
   const float* krow;
   const int* rtab;
   const int* ctab;
-  int h, w, C, kh, kw, sf, pre0, pre1, maxr, maxc, nc;
+  int h, w, Ho, Wo, C, kh, kw, sf, pre0, pre1, maxr, maxc, nc;
 };
 
 // The most LR samples the clamped taps of `tile` HR samples reach along
@@ -316,7 +322,7 @@ __global__ void __launch_bounds__(kThreads) sepfilter_up_kernel(UpArgs p) {
   const int C = C_ ? C_ : p.C;
   extern __shared__ float smem[];
   const int h = p.h, w = p.w, sf = p.sf, kh = p.kh, kw = p.kw;
-  const int H = h * sf, W = w * sf;
+  const int H = p.Ho, W = p.Wo;  // h * sf, w * sf, + 1 for even taps
   const int rh = kh / 2, rw = kw / 2;
   const int maxr = p.maxr, maxc = p.maxc;
   const int i0 = blockIdx.y * kUpTileH, j0 = blockIdx.x * kUpTileW;
@@ -519,14 +525,14 @@ int down_tile_cols(int sf) { return sf >= 64 ? 1 : 64 / sf; }
 
 template <int C_>
 int launch_edge(const float* x, float* out, const float* kcol,
-                const float* krow, int B, int H, int W, int C, int kh,
-                int kw, size_t smem, cudaStream_t stream) {
+                const float* krow, int B, int H, int W, int Ho, int Wo,
+                int C, int kh, int kw, size_t smem, cudaStream_t stream) {
   auto kernel = sepfilter_edge_kernel<C_>;
   if (int e = prepare(kernel, smem)) return e;
-  dim3 grid((W + kEdgeTileW - 1) / kEdgeTileW,
-            (H + kEdgeTileH - 1) / kEdgeTileH, B);
-  kernel<<<grid, kThreads, smem, stream>>>(x, out, kcol, krow, H, W, C, kh,
-                                           kw);
+  dim3 grid((Wo + kEdgeTileW - 1) / kEdgeTileW,
+            (Ho + kEdgeTileH - 1) / kEdgeTileH, B);
+  kernel<<<grid, kThreads, smem, stream>>>(x, out, kcol, krow, H, W, Ho, Wo,
+                                           C, kh, kw);
   return (int)cudaGetLastError();
 }
 
@@ -548,8 +554,8 @@ template <int C_, bool kCombine>
 int launch_up(const UpArgs& args, int B, size_t smem, cudaStream_t stream) {
   auto kernel = sepfilter_up_kernel<C_, kCombine>;
   if (int e = prepare(kernel, smem)) return e;
-  dim3 grid((args.w * args.sf + kUpTileW - 1) / kUpTileW,
-            (args.h * args.sf + kUpTileH - 1) / kUpTileH, B);
+  dim3 grid((args.Wo + kUpTileW - 1) / kUpTileW,
+            (args.Ho + kUpTileH - 1) / kUpTileH, B);
   kernel<<<grid, kThreads, smem, stream>>>(args);
   return (int)cudaGetLastError();
 }
@@ -565,20 +571,27 @@ size_t exsr_sepfilter_edge_smem(int C, int kh, int kw) {
   return (kh + kw + (xrows + kEdgeTileH) * ld) * sizeof(float);
 }
 
-// Launches on `stream`; returns cudaGetLastError().
+// Launches on `stream`; returns cudaGetLastError().  out is
+// [B, H + 1 - kh % 2, W + 1 - kw % 2, C].
 int exsr_sepfilter_edge(const void* x, void* out, const void* kcol,
                         const void* krow, int B, int H, int W, int C, int kh,
                         int kw, void* stream) {
+  const int Ho = H + 1 - kh % 2, Wo = W + 1 - kw % 2;
   const size_t smem = exsr_sepfilter_edge_smem(C, kh, kw);
   auto s = (cudaStream_t)stream;
   auto xs = (const float*)x;
   auto o = (float*)out;
   auto kc = (const float*)kcol, kr = (const float*)krow;
   switch (C) {
-    case 1: return launch_edge<1>(xs, o, kc, kr, B, H, W, C, kh, kw, smem, s);
-    case 3: return launch_edge<3>(xs, o, kc, kr, B, H, W, C, kh, kw, smem, s);
+    case 1:
+      return launch_edge<1>(xs, o, kc, kr, B, H, W, Ho, Wo, C, kh, kw, smem,
+                             s);
+    case 3:
+      return launch_edge<3>(xs, o, kc, kr, B, H, W, Ho, Wo, C, kh, kw, smem,
+                             s);
     default:
-      return launch_edge<0>(xs, o, kc, kr, B, H, W, C, kh, kw, smem, s);
+      return launch_edge<0>(xs, o, kc, kr, B, H, W, Ho, Wo, C, kh, kw, smem,
+                            s);
   }
 }
 
@@ -616,7 +629,9 @@ size_t exsr_sepfilter_up_smem(int C, int kh, int kw, int sf, int maxr,
           ld) * sizeof(float);
 }
 
-// b and g null: out = U(a); else out = U(a) + (g - U(b)).
+// b and g null: out = U(a); else out = U(a) + (g - U(b)).  out and g are
+// [B, h * sf + 1 - kh % 2, w * sf + 1 - kw % 2, C]; the tap lists hold one
+// column per output row (rtab) and column (ctab).
 int exsr_sepfilter_up(const void* a, const void* b, const void* g, void* out,
                       const void* kcol, const void* krow, const void* rtab,
                       const void* ctab, int B, int h, int w, int C, int kh,
@@ -627,8 +642,9 @@ int exsr_sepfilter_up(const void* a, const void* b, const void* g, void* out,
       exsr_sepfilter_up_smem(C, kh, kw, sf, maxr, maxc, combine);
   const UpArgs args{(const float*)a, (const float*)b, (const float*)g,
                     (float*)out, (const float*)kcol, (const float*)krow,
-                    (const int*)rtab, (const int*)ctab, h, w, C, kh, kw,
-                    sf, pre0, pre1, maxr, maxc, lr_span(kUpTileW, kw, sf)};
+                    (const int*)rtab, (const int*)ctab, h, w,
+                    h * sf + 1 - kh % 2, w * sf + 1 - kw % 2, C, kh, kw, sf,
+                    pre0, pre1, maxr, maxc, lr_span(kUpTileW, kw, sf)};
   auto s = (cudaStream_t)stream;
   switch (C) {
     case 1: return combine ? launch_up<1, true>(args, B, smem, s)

@@ -1,12 +1,16 @@
-"""Weight bridge from ``exsr``'s RRDBNet parameters to the port's RRDBNet.
+"""Weight bridges from ``exsr``'s parameters to the port's modules: the
+RRDBNet (:func:`from_exsr_params`), and ``MSRResNet``, ``SRResNet`` and
+``VGG19Features`` (:func:`from_exsr_flat_params`).
 
 The caller hands over ``exsr``'s params as a nested dict of numpy arrays
-(``jax.tree.map(np.asarray, params)``), so the port never sees JAX.  Conv
-kernels go from HWIO to OIHW, and the trunk scan's stacked ``[nb]`` axis is
-split per block (``tests/test_torch_parity.py:257-280`` has the same mapping
-in reverse).  Names: ``fea_conv`` and ``upconv{i}`` hold ``kernel``/``bias``
-directly, while ``trunk_conv`` and ``hr_conv{0,1}`` nest them under
-``Conv_0``.
+(``jax.tree.map(np.asarray, params)``, or
+:func:`exsr_torch.train.checkpoints.load_exsr_npz`), so the port never
+sees JAX.  Conv kernels go from HWIO to OIHW, and the trunk scan's stacked
+``[nb]`` axis is split per block (``tests/test_torch_parity.py:257-280``
+has the same mapping in reverse).  Names: ``fea_conv`` and ``upconv{i}``
+hold ``kernel``/``bias`` directly, while ``trunk_conv`` and
+``hr_conv{0,1}`` nest them under ``Conv_0``.  The plain generators and VGG name every conv at the top level
+of their tree, as the port's modules do.
 """
 from __future__ import annotations
 
@@ -41,3 +45,13 @@ def from_exsr_params(tree) -> dict:
                     stacked[f'rdb{r}'][f'conv{c}']['Conv_0'], i)
     return {f'{name}.{k}': v for name, entry in convs.items()
             for k, v in entry.items()}
+
+
+
+def from_exsr_flat_params(tree) -> dict:
+    """``exsr`` params whose convs all sit at the top level of the tree
+    (``MSRResNet``, ``SRResNet``, ``VGG19Features``; numpy tree) -> the
+    state dict of the port's module of the same name."""
+    p = tree['params'] if 'params' in tree else tree
+    return {f'{name}.{k}': v for name in p
+            for k, v in _conv(p[name]).items()}

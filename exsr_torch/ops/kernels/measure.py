@@ -108,10 +108,14 @@ def sepfilter_kernels(filt, gen, device, batch: int, lr: int,
                       ) -> dict:
     """The CEM filter's entry points at LR ``lr`` and HR ``lr * filt.sf``
     (the down and up filters at HR, the inv_hTh filter at LR), by name.
+    An even tap count grows the same-size and up filters' outputs by one
+    pixel along each axis (``sepfilter.out_len``); the combine's ``g`` has
+    the up filter's output size.
 
     Each record holds the error against the plain version (tolerance
-    1e-5), whether the result equals its composition through the
-    same-size kernel and itself on a second call, bit for bit, the
+    1e-5), whether the shapes agree, whether the result equals its
+    composition through the same-size kernel and itself on a second call,
+    bit for bit, the
     kernel's time (``ms``; ``graph_ms`` too, except for the same-size
     kernel at HR unless ``graph_hr``) and its bound from this run's bytes
     and useful operations.  With ``references``, also the composition's
@@ -124,38 +128,47 @@ def sepfilter_kernels(filt, gen, device, batch: int, lr: int,
                for _ in range(3)]
     lr_sets = [torch.rand(batch, lr, lr, 3, generator=gen, device=device)
                for _ in range(12)]
-    hr_bytes, lr_bytes = 4 * hr_sets[0].numel(), 4 * lr_sets[0].numel()
     kd, ku, ki = (filt.w_down_1d[0].numel(), filt.w_up_1d[0].numel(),
                   filt.w_inv_hth_1d[0].numel())
+    hr_up = K.out_len(hr, ku)
+    g_sets = hr_sets if hr_up == hr else [
+        torch.rand(batch, hr_up, hr_up, 3, generator=gen, device=device)
+        for _ in range(3)]
+    hr_bytes, lr_bytes = 4 * hr_sets[0].numel(), 4 * lr_sets[0].numel()
+    up_bytes = 4 * g_sets[0].numel()
+    # outputs of the same-size filter at HR and LR, and of the down filter
+    edge_hr = 4 * batch * 3 * K.out_len(hr, kd) ** 2
+    edge_lr = 4 * batch * 3 * K.out_len(lr, ki) ** 2
+    down_lr = 4 * batch * 3 * len(range(pre[0], K.out_len(hr, kd), sf)) ** 2
     # useful fp32 operations (2 a product): the same-size filter at every
     # pixel; down: the column pass at the kept rows, the row pass at the
     # kept pixels; up: the products whose input is data (the tap lists'
     # entries), plus the combine's two adds
-    px_hr, px_lr = batch * hr * hr * 3, batch * lr * lr * 3
+    px_hr, px_lr = edge_hr // 4, edge_lr // 4
     up_taps = int((K.polyphase_taps(lr, sf, pre[0], ku) >= 0).sum())
-    up_flops = 2 * 2 * batch * 3 * up_taps * (lr + hr)
+    up_flops = 2 * 2 * batch * 3 * up_taps * (lr + hr_up)
     table = {
         'sepfilter_edge[hr]': (
             K.sepfilter_edge, None, K.sepfilter_edge_plain,
-            [(x, *filt.w_down_1d) for x in hr_sets], 2 * hr_bytes,
+            [(x, *filt.w_down_1d) for x in hr_sets], hr_bytes + edge_hr,
             2 * 2 * kd * px_hr),
         'sepfilter_edge[lr]': (
             K.sepfilter_edge, None, K.sepfilter_edge_plain,
-            [(x, *filt.w_inv_hth_1d) for x in lr_sets], 2 * lr_bytes,
+            [(x, *filt.w_inv_hth_1d) for x in lr_sets], lr_bytes + edge_lr,
             2 * 2 * ki * px_lr),
         'sepfilter_down': (
             K.sepfilter_down, composed_down, K.sepfilter_down_plain,
             [(x, *filt.w_down_1d, sf, pre) for x in hr_sets],
-            hr_bytes + lr_bytes, 2 * kd * (px_hr // sf + px_lr)),
+            hr_bytes + down_lr, 2 * kd * (px_hr // sf + down_lr // 4)),
         'sepfilter_up[up]': (
             K.sepfilter_up, composed_up, K.sepfilter_up_plain,
             [(lr_sets[i], *filt.w_up_1d, sf, pre) for i in range(3)],
-            hr_bytes + lr_bytes, up_flops // 2),
+            up_bytes + lr_bytes, up_flops // 2),
         'sepfilter_up[combine]': (
             K.sepfilter_up, composed_up, K.sepfilter_up_plain,
             [(lr_sets[2 * i], *filt.w_up_1d, sf, pre, lr_sets[2 * i + 1],
-              hr_sets[i]) for i in range(3)], 2 * hr_bytes + 2 * lr_bytes,
-            up_flops + 2 * px_hr),
+              g_sets[i]) for i in range(3)], 2 * up_bytes + 2 * lr_bytes,
+            up_flops + 2 * up_bytes // 4),
     }
     results = {}
     for name in cases:
@@ -167,13 +180,18 @@ def sepfilter_kernels(filt, gen, device, batch: int, lr: int,
         comp = out if composed is None else composed(*sets[0])
         again = fn(*sets[0])
         torch.cuda.synchronize()
-        rec = dict(shape=list(out.shape),
+        same_shape = out.shape == ref.shape == comp.shape
+        rec = dict(shape=list(out.shape), shape_equal_plain=same_shape,
                    taps=[sets[0][1].numel(), sets[0][2].numel()],
-                   max_abs_err=(out - ref).abs().max().item(), tol=1e-5,
-                   bit_equal_composition=bool(torch.equal(out, comp)),
+                   max_abs_err=(out - ref).abs().max().item()
+                   if same_shape else float('inf'), tol=1e-5,
+                   bit_equal_composition=same_shape and bool(
+                       torch.equal(out, comp)),
                    repeat_bit_equal=bool(torch.equal(again, out)))
         del out, ref, comp, again
         if verify:
+            _check(same_shape, f'{name} shape differs from the plain '
+                   'version\'s')
             _check(rec['max_abs_err'] <= 1e-5,
                    f'{name} max error {rec["max_abs_err"]} > 1e-5')
             _check(rec['bit_equal_composition'], f'{name} differs from its '
@@ -209,7 +227,7 @@ def sepfilter_kernels(filt, gen, device, batch: int, lr: int,
                 cem_enforce_composed_ms=cuda_ms(composed, sets, 12),
                 cem_enforce_composed_graph_ms=graph_ms(composed, sets, 12))
             del new, old
-    del hr_sets, lr_sets
+    del hr_sets, lr_sets, g_sets
     torch.cuda.empty_cache()
     return results
 
@@ -218,15 +236,18 @@ def taps_inputs(filt, batch: int, lr: int, gen, device):
     """The three adjoints of the CEM filter's backward at LR ``lr`` (HR
     ``lr * sf``), as ``{kind: (input, row table, column table)}``: ``U``
     (U^T, HR in, LR out), ``E`` (the inv_hTh filter's E^T, LR) and ``D``
-    (D^T, LR in, HR out), in the order a backward runs them."""
+    (D^T, LR in, HR out), in the order a backward runs them.  Each input
+    has the size of its forward map's output (one pixel more along an axis
+    with an even tap count)."""
     sf, pre = filt.sf, filt.pre
-    hr = lr * sf
-    cases = {'U': (filt.adj_up, hr, lr), 'E': (filt.adj_inv_hth, lr, lr),
-             'D': (filt.adj_down, lr, hr)}
+    cases = {'U': (filt.adj_up, lr), 'E': (filt.adj_inv_hth, lr),
+             'D': (filt.adj_down, lr * sf)}
     out = {}
-    for kind, (tables, n_in, n_out) in cases.items():
-        y = torch.rand(batch, n_in, n_in, 3, generator=gen, device=device)
-        out[kind] = (y, *tables.get(kind, n_out, n_out, sf, pre, device))
+    for kind, (tables, n_fwd) in cases.items():
+        rows, cols = tables.get(kind, n_fwd, n_fwd, sf, pre, device)
+        y = torch.rand(batch, rows.n_in, cols.n_in, 3, generator=gen,
+                       device=device)
+        out[kind] = (y, rows, cols)
     return out
 
 
@@ -250,6 +271,8 @@ def sepfilter_taps_kernels(filt, gen, device, batch: int, lr: int,
         abs_err = (out - ref).abs().max().item()
         err = abs_err / ref.abs().max().item()
         if verify:
+            _check(out.shape == ref.shape, f'sepfilter_taps[{kind}] shape '
+                   f'{tuple(out.shape)} differs from the plain version\'s')
             _check(err <= 1e-5, f'sepfilter_taps[{kind}] relative error '
                    f'{err} > 1e-5')
         b, hi, wi, c = y.shape

@@ -3,12 +3,14 @@
 Replaces ``sepfilter_edge_pallas`` (``exsr/ops/pallas/sepfilter.py:76``).
 :func:`sepfilter_edge` computes, on fp32 NHWC ``[B, H, W, C]``, the
 correlation with ``kcol`` along H and then with ``krow`` along W, with
-replicate (edge-clamped) borders: ``filters.filter_replicate_same_separable``
-for odd tap counts.  Two polyphase forms serve the CEM's resampling:
+replicate (edge-clamped) borders: ``filters.filter_replicate_same_separable``.
+As there, an axis with an even tap count grows by one sample (replicate
+padding by ``k // 2`` on both sides, then a VALID correlation:
+:func:`out_len`).  Two polyphase forms serve the CEM's resampling:
 
 - :func:`sepfilter_down`: the filter sampled at sub-position ``pre`` of
-  every ``sf x sf`` cell (``aliased_subsample`` of the same-size result),
-  computing only the kept outputs;
+  every ``sf x sf`` cell (``aliased_subsample`` of the same-size result,
+  grown or not), computing only the kept outputs;
 - :func:`sepfilter_up`: the filter applied to ``zero_stuff(a)``, computing
   only the products whose input is not a stuffed zero; with ``b`` and ``g``
   it returns ``U(a) + (g - U(b))``, the CEM's ``ortho + ns``.
@@ -80,9 +82,15 @@ def sepfilter_up_plain(a: torch.Tensor, kcol: torch.Tensor,
     return a_up + (g - b_up)
 
 
+def out_len(n: int, k: int) -> int:
+    """Outputs of the same-size filter along an axis of ``n`` samples and
+    ``k`` taps: ``n``, or ``n + 1`` for an even ``k``."""
+    return n + 1 - k % 2
+
+
 def polyphase_taps(n_lr: int, sf: int, pre: int, k: int) -> np.ndarray:
-    """Tap lists of the up filter along one axis of ``n_lr * sf`` HR
-    samples, ``int32 [max entries, n_lr * sf]``.
+    """Tap lists of the up filter along one axis of ``n_lr * sf`` stuffed
+    HR samples, ``int32 [max entries, out_len(n_lr * sf, k)]``.
 
     Entry ``e`` of HR index ``i`` is ``(I << 8) | r``: tap ``r`` of the
     ``k`` taps meets data sample ``I`` of the LR axis, for the ``e``-th
@@ -94,8 +102,8 @@ def polyphase_taps(n_lr: int, sf: int, pre: int, k: int) -> np.ndarray:
     if k > 255:
         raise ValueError(f'{k} taps: the tap index has 8 bits')
     n = n_lr * sf
-    hr = np.clip(np.arange(n)[:, None] - k // 2 + np.arange(k)[None, :],
-                 0, n - 1)
+    hr = np.clip(np.arange(out_len(n, k))[:, None] - k // 2
+                 + np.arange(k)[None, :], 0, n - 1)
     data = (hr - pre) % sf == 0
     count = data.sum(1)
     order = np.argsort(~data, axis=1, kind='stable')[:, :count.max()]
@@ -128,7 +136,8 @@ def adjoint_taps(kind: str, n_in: int, sf: int, pre: int, k
     with taps ``k`` and replicate borders: ``'E'`` the same-size filter,
     ``'D'`` the filter kept at samples ``pre, pre + sf, ...`` (HR in, LR
     out), ``'U'`` the filter of the zero-stuffed signal (LR in, ``n_in *
-    sf`` HR out).  Entry ``e`` of adjoint output ``i`` (an input sample of
+    sf`` HR out); an even tap count grows the output axis by one sample
+    (:func:`out_len`).  Entry ``e`` of adjoint output ``i`` (an input sample of
     the forward) is the ``e``-th forward output, ascending, whose taps meet
     sample ``i``, with the sum of those taps' weights (in float64: at a
     clamped edge several taps fold onto one sample); index ``-1`` and
@@ -136,15 +145,12 @@ def adjoint_taps(kind: str, n_in: int, sf: int, pre: int, k
     """
     k = np.asarray(k, np.float64).reshape(-1)
     nk = k.size
-    if kind == 'E':
-        n_sig, pos = n_in, np.arange(n_in)
-    elif kind == 'D':
-        n_sig, pos = n_in, np.arange(pre, n_in, sf)
-    elif kind == 'U':
-        n_sig = n_in * sf
-        pos = np.arange(n_sig)
-    else:
+    if kind not in ('E', 'D', 'U'):
         raise ValueError(f'kind must be E, D or U, got {kind!r}')
+    n_sig = n_in * sf if kind == 'U' else n_in
+    pos = np.arange(out_len(n_sig, nk))
+    if kind == 'D':
+        pos = pos[pre::sf]
     src = np.clip(pos[:, None] - nk // 2 + np.arange(nk)[None, :], 0,
                   n_sig - 1)
     if kind == 'U':
@@ -239,13 +245,21 @@ class AdjointTables:
         if hit is None:
             hit = tuple(
                 AxisTable.build(*adjoint_taps(kind, n, sf, p, k),
-                                {'E': n, 'D': len(range(p, n, sf)),
-                                 'U': n * sf}[kind],
+                                _forward_len(kind, n, sf, p, k.size),
                                 _ADJ_TILE[kind][axis], device, dtype)
                 for axis, (n, p, k) in enumerate(zip((n_h, n_w), pre,
                                                      self.host)))
             self._cache[key] = hit
         return hit
+
+
+def _forward_len(kind: str, n: int, sf: int, pre: int, k: int) -> int:
+    """Outputs of the forward map ``kind`` along an axis of ``n`` inputs:
+    the inputs of its adjoint."""
+    if kind == 'U':
+        return out_len(n * sf, k)
+    m = out_len(n, k)
+    return len(range(pre, m, sf)) if kind == 'D' else m
 
 
 def _axis_product(x: torch.Tensor, tab: AxisTable, dim: int
@@ -323,17 +337,11 @@ def _check(x: torch.Tensor, kcol: torch.Tensor, krow: torch.Tensor,
                              f'{x.device}')
 
 
-def _check_device(kcol, krow, x) -> None:
-    """Raise for a device, or on CUDA for taps, that the kernels do not
-    take (a CPU tensor runs the plain version)."""
-    if x.device.type == 'cpu':
-        return
-    if x.device.type != 'cuda':
+def _check_device(x) -> None:
+    """Raise for a device that the kernels do not take (a CPU tensor runs
+    the plain version)."""
+    if x.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'unsupported device {x.device}')
-    kh, kw = kcol.numel(), krow.numel()
-    if kh % 2 == 0 or kw % 2 == 0:
-        raise NotImplementedError(
-            f'the CUDA kernel takes odd tap counts only, got {kh} x {kw}')
 
 
 def _check_smem(smem: int, what: str) -> None:
@@ -352,7 +360,7 @@ def _edge_kernel(x, kcol, krow):
     lib = build.load('sepfilter', _SIGNATURES)
     _check_smem(lib.exsr_sepfilter_edge_smem(c, kh, kw),
                 f'sepfilter_edge with {kh}+{kw} taps at C={c}')
-    out = torch.empty_like(x)
+    out = x.new_empty((b, out_len(h, kh), out_len(w, kw), c))
     kcol, krow = kcol.contiguous(), krow.contiguous()
     err = lib.exsr_sepfilter_edge(
         x.data_ptr(), out.data_ptr(), kcol.data_ptr(), krow.data_ptr(),
@@ -365,7 +373,8 @@ def _edge_kernel(x, kcol, krow):
 def _down_kernel(x, kcol, krow, sf, pre):
     kh, kw = kcol.numel(), krow.numel()
     b, h, w, c = x.shape
-    ho, wo = len(range(pre[0], h, sf)), len(range(pre[1], w, sf))
+    ho = len(range(pre[0], out_len(h, kh), sf))
+    wo = len(range(pre[1], out_len(w, kw), sf))
     out = x.new_empty((b, ho, wo, c))
     if out.numel() == 0:
         return out
@@ -391,7 +400,7 @@ def _up_kernel(a, kcol, krow, sf, pre, b=None, g=None):
     _check_smem(lib.exsr_sepfilter_up_smem(c, kh, kw, sf, maxr, maxc,
                                            int(combine)),
                 f'sepfilter_up with {kh}+{kw} taps at C={c}, sf {sf}')
-    out = a.new_empty((n, h * sf, w * sf, c))
+    out = a.new_empty((n, out_len(h * sf, kh), out_len(w * sf, kw), c))
     kcol, krow = kcol.contiguous(), krow.contiguous()
     err = lib.exsr_sepfilter_up(
         a.data_ptr(), b.data_ptr() if combine else None,
@@ -486,13 +495,14 @@ def sepfilter_edge(x: torch.Tensor, kcol: torch.Tensor, krow: torch.Tensor,
     """Separable edge-clamped correlation of fp32 NHWC ``x``.
 
     A CPU tensor goes to :func:`sepfilter_edge_plain`; a CUDA tensor
-    launches the kernel, which takes odd tap counts only.  Differentiable in
+    launches the kernel.  An axis with an even tap count grows by one
+    sample (:func:`out_len`).  Differentiable in
     ``x`` (the taps take no gradient): the backward launches
     :func:`sepfilter_taps` on CUDA, on the tables of ``adjoint`` (the
     taps' :class:`AdjointTables`; made from the taps when None).
     """
     _check(x, kcol, krow)
-    _check_device(kcol, krow, x)
+    _check_device(x)
     return _linear('E', x, kcol, krow, adjoint=adjoint)
 
 
@@ -504,7 +514,7 @@ def sepfilter_down(x: torch.Tensor, kcol: torch.Tensor, krow: torch.Tensor,
     computes the kept outputs only.  Differentiable in ``x``, as
     :func:`sepfilter_edge`."""
     _check(x, kcol, krow)
-    _check_device(kcol, krow, x)
+    _check_device(x)
     return _linear('D', x, kcol, krow, sf, tuple(pre), adjoint)
 
 
@@ -513,7 +523,10 @@ def sepfilter_up(a: torch.Tensor, kcol: torch.Tensor, krow: torch.Tensor,
                  g: torch.Tensor | None = None,
                  adjoint: AdjointTables | None = None) -> torch.Tensor:
     """``sepfilter_edge(zero_stuff(a, sf, pre), kcol, krow)``: LR in, HR
-    out.  With ``b`` (LR, as ``a``) and ``g`` (HR): ``U(a) + (g - U(b))``.
+    out, grown by one sample along an axis with an even tap count.  With
+    ``b`` (LR, as ``a``) and ``g`` (HR, the size of the output):
+    ``U(a) + (g - U(b))``; a ``g`` of another size raises, as ``exsr``'s
+    ``enforce`` fails on it.
     CPU: :func:`sepfilter_up_plain`; CUDA: the up kernel, which multiplies
     only the taps that land on data.  Differentiable in ``a``, ``b`` and
     ``g``, as :func:`sepfilter_edge`."""
@@ -524,11 +537,13 @@ def sepfilter_up(a: torch.Tensor, kcol: torch.Tensor, krow: torch.Tensor,
     if b is not None:
         _check(b, kcol, krow, 'b')
         _check(g, kcol, krow, 'g')
-        if b.shape != a.shape or g.shape != (n, h * sf, w * sf, c):
+        hr = (n, out_len(h * sf, kcol.numel()), out_len(w * sf, krow.numel()),
+              c)
+        if b.shape != a.shape or g.shape != hr:
             raise ValueError(f'b {tuple(b.shape)} must match a '
                              f'{tuple(a.shape)} and g {tuple(g.shape)} be '
-                             f'its x{sf} size')
-    _check_device(kcol, krow, a)
+                             f'the x{sf} size of a, {hr}')
+    _check_device(a)
     if b is None:
         return _linear('U', a, kcol, krow, sf, tuple(pre), adjoint)
     return _up_combine(a, b, g, kcol, krow, sf, tuple(pre), adjoint)

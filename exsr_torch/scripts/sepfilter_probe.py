@@ -19,9 +19,9 @@ same process; a copy without a pass computes nothing useful, so only the
 tiling copies are held to the plain versions.
 
 ``--baseline`` builds another version of ``sepfilter.cu`` (an older
-commit's; it needs the same-size entry point only) and times its
-same-size kernel against this one's at HR and LR, by CUDA events and by
-graph replay, in the order baseline, this, this, baseline.
+commit's, with the same C entry points) and times its same-size, down and
+up kernels against this one's, by CUDA events and by graph replay, in the
+order baseline, this, this, baseline.
 """
 from __future__ import annotations
 
@@ -44,7 +44,9 @@ from exsr_torch.ops.kernels import sepfilter as K  # noqa: E402
 from exsr_torch.ops.kernels.measure import sepfilter_kernels  # noqa: E402
 
 BATCH, LR, SCALE = 16, 128, 4
-EDGE = ('sepfilter_edge[hr]', 'sepfilter_edge[lr]')
+# the entry points a baseline build is timed on
+ENTRY_POINTS = ('sepfilter_edge[hr]', 'sepfilter_edge[lr]', 'sepfilter_down',
+                'sepfilter_up[up]', 'sepfilter_up[combine]')
 
 # copies with one tiling choice changed, or with one pass taken out (those
 # compute nothing useful: the time they save is what the pass costs while
@@ -141,11 +143,11 @@ def main() -> int:
             for order in range(4):
                 if order in (0, 3):
                     with build.substitute('sepfilter', old):
-                        show(run(cases=EDGE, references=False),
+                        show(run(cases=ENTRY_POINTS, references=False),
                              variant='baseline', order=order)
                 else:
-                    show(run(cases=EDGE, references=False), variant=None,
-                         order=order)
+                    show(run(cases=ENTRY_POINTS, references=False),
+                         variant=None, order=order)
         if args.variants:
             source = (build.CSRC / 'sepfilter.cu').read_text()
             for name, subs in VARIANTS:

@@ -1,15 +1,56 @@
-"""Host helpers of the edit session: the periodicity tool's
-autocorrelation and line sampling, and the scribble tool's masks.
+"""Host helpers of the edit session and the evaluation CLI: the
+periodicity tool's autocorrelation and line sampling, the scribble tool's
+masks, and Z maps made from images or stored as PNG.
 
-The port's own copies of ``overlap_normalized_autocorr``,
-``first_autocorr_peak``, ``bilinear_sample_line`` and
-``scribble_mask_components`` (``exsr/utils/misc.py:98-187``); numpy and
-scipy only.
+The port's own copies of ``im_to_z_input``, ``z_map_to_png``,
+``png_to_z_map`` (``exsr/utils/misc.py:41-82``),
+``overlap_normalized_autocorr``, ``first_autocorr_peak``,
+``bilinear_sample_line`` and ``scribble_mask_components``
+(``exsr/utils/misc.py:98-187``); numpy and scipy only.
 """
 from __future__ import annotations
 
 import numpy as np
+from scipy.ndimage import uniform_filter, zoom
 from scipy.signal import convolve2d
+
+
+def im_to_z_input(image: np.ndarray, size_hw: tuple[int, int],
+                  z_range: float = 1.0,
+                  single_channel: bool = False) -> np.ndarray:
+    """An image as a Z input map ``[H, W, C]`` float32: resized to
+    ``size_hw`` (bilinear), min-max normalized into ``[-z_range,
+    z_range]``, then smoothed by a 5 x 5 edge-padded box filter."""
+    img = np.asarray(image, np.float64)
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.shape[-1] == 1 and not single_channel:
+        img = np.repeat(img, 3, axis=-1)
+    factors = (size_hw[0] / img.shape[0], size_hw[1] / img.shape[1], 1)
+    img = zoom(img, factors, order=1)[:size_hw[0], :size_hw[1]]
+    if single_channel:
+        img = img.mean(2, keepdims=True)
+    # a tolerance, not > 0: the bilinear zoom leaves ~1e-18 of noise on a
+    # constant image, which min-max normalization would blow up
+    if img.max() - img.min() > 1e-9:
+        img = ((img - img.min()) / (img.max() - img.min())
+               * 2 * z_range - z_range)
+        img = uniform_filter(img, size=(5, 5, 1), mode='nearest')
+    else:
+        img = img * 2 * z_range - z_range
+    return img.astype(np.float32)
+
+
+def z_map_to_png(z: np.ndarray) -> np.ndarray:
+    """A [-1, 1] 3-channel Z map as a uint8 image."""
+    if z.ndim != 3 or z.shape[-1] != 3:
+        raise ValueError(f'expected an [H, W, 3] Z map, got {z.shape}')
+    return np.round((np.clip(z, -1, 1) + 1.0) * 127.5).astype(np.uint8)
+
+
+def png_to_z_map(img: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`z_map_to_png`, to within 1/127.5."""
+    return img.astype(np.float32) / 127.5 - 1.0
 
 
 def overlap_normalized_autocorr(x: np.ndarray) -> np.ndarray:

@@ -6,10 +6,9 @@ table of measured forward times per batch size, the batch a request of
 larger than ``n`` when a larger batch is absolutely faster.  ``pad_batch``
 zero-pads a request to that bucket.
 
-The port's table is empty, which is the identity policy: every request
-runs at its own size.  ``exsr``'s table was measured on another device and
-does not carry over; a table for the port comes from timing its forward on
-the GPU.
+``MS_PER_FWD`` is the port's own table: ``exsr``'s was measured on
+another device and does not carry over.  An empty table is the identity
+policy (every request runs at its own size).
 """
 from __future__ import annotations
 
@@ -17,7 +16,14 @@ import bisect
 
 import torch
 
-MS_PER_FWD: dict[int, float] = {}
+# ms per forward of build_model(4) as served by default (fp32 trunk, CEM,
+# pre-padded) at LR 128, by batch: the median of 3 warm requests, host
+# clock ending in a synchronize (chip_smoke.py phase 9, batch_sweep; on an
+# NVIDIA H100 80GB HBM3 at 700.00 W).  Batches 3 and 4 run at 8, which
+# took less time.
+MS_PER_FWD: dict[int, float] = {
+    1: 639.03, 2: 764.58, 4: 1237.98, 8: 986.61, 16: 1452.66, 32: 2385.56,
+    64: 4243.33}
 
 # alternatives-batch buckets of the interactive edit path
 ALT_BUCKETS: tuple[int, ...] = (1, 2, 4, 8, 16, 32)

@@ -45,8 +45,11 @@ def _rand(gen, *shape, dtype=torch.float32, device='cuda'):
 
 @pytest.mark.parametrize('shape,kh,kw', [((2, 70, 130, 3), 27, 17),
                                          ((1, 16, 64, 1), 1, 3),
-                                         ((3, 9, 5, 4), 17, 27)])
+                                         ((3, 9, 5, 4), 17, 27),
+                                         ((2, 70, 130, 3), 4, 17),
+                                         ((3, 9, 5, 4), 8, 6)])
 def test_sepfilter_kernel_matches_plain(cuda, shape, kh, kw):
+    """Odd and even tap counts; an even one grows its axis by one."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.rand(*shape, generator=gen, device=cuda)
     kcol, krow = _rand(gen, kh), _rand(gen, kw)
@@ -55,9 +58,9 @@ def test_sepfilter_kernel_matches_plain(cuda, shape, kh, kw):
     torch.cuda.synchronize()
     assert sepfilter_edge.launches == before + 1
     ref = sepfilter_edge_plain(x, kcol, krow)
+    b, h, w, c = shape
+    assert out.shape == ref.shape == (b, h + 1 - kh % 2, w + 1 - kw % 2, c)
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match='odd'):
-        sepfilter_edge(x, torch.cat([kcol, kcol]), krow)
 
 
 def _cem_taps(sf, which, device):
@@ -132,13 +135,41 @@ def test_sepfilter_up_kernel_matches_plain_and_composition(cuda, sf, c, b, h,
         assert torch.equal(sepfilter_up(a, kcol, krow, sf, pre, **kw), out)
 
 
-def test_polyphase_kernels_refuse_even_taps(cuda):
-    x = torch.rand(1, 16, 16, 3, device=cuda)
-    k, even = torch.ones(5, device=cuda), torch.ones(4, device=cuda)
-    with pytest.raises(NotImplementedError, match='odd'):
-        sepfilter_down(x, even, k, 4, (1, 1))
-    with pytest.raises(NotImplementedError, match='odd'):
-        sepfilter_up(x, k, even, 4, (1, 1))
+@pytest.mark.parametrize('k', [4, 6, 8])
+@pytest.mark.parametrize('sf,pre', [(2, (0, 0)), (3, (1, 1)), (4, (1, 2))])
+@pytest.mark.parametrize('b,h,w', LR_SHAPES)
+def test_polyphase_kernels_take_even_taps(cuda, k, sf, pre, b, h, w):
+    """Even tap counts, as exsr's filters take them: the outputs' shapes
+    and values equal the plain versions' (1e-5) and their composition
+    through the same-size kernel (bit for bit), in both modes of the up
+    kernel; the combine refuses a g of the ungrown size."""
+    gen = torch.Generator(device=cuda).manual_seed(k * 10 + sf)
+    kcol, krow = _rand(gen, k), _rand(gen, k + 2)
+    x = torch.rand(b, sf * h, sf * w, 3, generator=gen, device=cuda)
+    out = sepfilter_down(x, kcol, krow, sf, pre)
+    ref = sepfilter_down_plain(x, kcol, krow, sf, pre)
+    assert out.shape == ref.shape
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    assert torch.equal(out, F.aliased_subsample(
+        sepfilter_edge(x, kcol, krow), sf, pre))
+    a, lo = (torch.rand(b, h, w, 3, generator=gen, device=cuda)
+             for _ in range(2))
+    hr = (b, sf * h + 1, sf * w + 1, 3)
+    g = torch.rand(hr, generator=gen, device=cuda)
+
+    def up(t):
+        return sepfilter_edge(F.zero_stuff(t, sf, pre).contiguous(), kcol,
+                              krow)
+    for kw, composed in (({}, up(a)),
+                         ({'b': lo, 'g': g}, up(a) + (g - up(lo)))):
+        out = sepfilter_up(a, kcol, krow, sf, pre, **kw)
+        ref = sepfilter_up_plain(a, kcol, krow, sf, pre, **kw)
+        assert out.shape == ref.shape == hr
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+        assert torch.equal(out, composed)
+    with pytest.raises(ValueError, match=f'x{sf} size'):
+        sepfilter_up(a, kcol, krow, sf, pre, b=lo,
+                     g=g[:, 1:, 1:].contiguous())
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -326,7 +357,7 @@ def test_kernels_refuse_gradients(cuda):
 # bicubic CEM at both extreme sub-positions, the CEM's tap counts, ragged
 # sizes, tiles cut short, and axes shorter than the taps
 TAPS_GRID = (
-    [('E', 1, 0, k, hw) for k in (9, 11, 17, 27, 33)
+    [('E', 1, 0, k, hw) for k in (4, 9, 11, 17, 27, 33)
      for hw in ((13, 21), (3, 2), (70, 130))]
     + [(kind, sf, pre, k, hw) for sf in (2, 3, 4, 8) for pre in (0, sf - 1)
        for kind, k, hw in (('D', 9, (5 * sf + 1, 3 * sf)),
@@ -334,6 +365,10 @@ TAPS_GRID = (
                            ('D', 33, (37 * sf + 3, 19 * sf)),
                            ('U', 11, (5, 3)), ('U', 17, (2, 1)),
                            ('U', 33, (37, 70)))]
+    # even taps grow the forward's output by one along each axis
+    + [(kind, sf, pre, k, hw) for sf in (2, 3, 4) for pre in (0, sf - 1)
+       for k in (4, 6, 8)
+       for kind, hw in (('D', (5 * sf + 1, 3 * sf)), ('U', (5, 3)))]
 )
 
 
@@ -345,9 +380,10 @@ def test_sepfilter_taps_matches_plain(cuda, kind, sf, pre, k, hw):
     gen = torch.Generator(device=cuda).manual_seed(k + 100 * sf + pre)
     kcol, krow = _rand(gen, k), _rand(gen, k)
     h, w = hw
-    n_out = {'E': (h, w), 'D': (len(range(pre, h, sf)),
-                                len(range(pre, w, sf))),
-             'U': (h * sf, w * sf)}[kind]
+    g = 1 - k % 2
+    n_out = {'E': (h + g, w + g), 'D': (len(range(pre, h + g, sf)),
+                                        len(range(pre, w + g, sf))),
+             'U': (h * sf + g, w * sf + g)}[kind]
     for c in (1, 3):
         y = torch.rand(2, *n_out, c, generator=gen, device=cuda)
         tabs = S.AdjointTables.of(kcol, krow).get(kind, h, w, sf,
@@ -499,3 +535,32 @@ def test_build_model_on_cuda_matches_cpu(cuda):
             sepfilter_up.launches, stage4.launches) == (2, 1, 1, 6)
     torch.testing.assert_close(out.cpu(), fwd_cpu(lr, z), atol=1e-5,
                                rtol=0)
+
+
+def test_eval_cli_on_cuda(cuda, tmp_path):
+    """The evaluation CLI on the card at nb 1, nf 16: every summary key
+    finite, the CEM's consistency kept, the SR images written, and the
+    CEM filter and stage-4 kernels launched for each forward."""
+    import json
+    from PIL import Image
+    from exsr_torch.apps import eval_sr
+    rng = np.random.default_rng(0)
+    d = tmp_path / 'hr'
+    d.mkdir()
+    for i in range(2):
+        Image.fromarray((rng.uniform(size=(96, 96, 3)) * 255)
+                        .astype(np.uint8)).save(d / f'im{i}.png')
+    sepfilter_edge.launches = stage4.launches = 0
+    summary = eval_sr.main(['--hr_dir', str(d), '--nb', '1', '--nf', '16',
+                            '--num_z', '3', '--latent', 'uniform_sweep',
+                            '--save_images', '--out_dir',
+                            str(tmp_path / 'out')])
+    assert summary['num_images'] == 2
+    for key in ('avg_psnr', 'avg_ssim', 'avg_consistency_mae',
+                'avg_per_pixel_std', 'avg_hr_std', 'avg_sr_high_freq_std'):
+        assert np.isfinite(summary[key])
+    assert summary['avg_consistency_mae'] < 1e-5
+    assert (sepfilter_edge.launches, stage4.launches) == (4, 6)
+    saved = json.loads((tmp_path / 'out' / 'summary.json').read_text())
+    assert len(saved['per_image']) == 2
+    assert (tmp_path / 'out' / 'im1_SR.png').exists()

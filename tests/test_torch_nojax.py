@@ -26,7 +26,9 @@ def test_every_module_imports_with_jax_and_exsr_blocked():
     assert 'exsr_torch.ops.kernels.rrdb_block' in mods
     for m in ('apps.session', 'zopt.optimizer', 'zopt.objectives',
               'zopt.histogram', 'zopt.patches', 'ops.structure_tensor',
-              'utils.misc'):
+              'utils.misc', 'apps.eval_sr', 'data.datasets',
+              'train.checkpoints', 'options.config', 'models.classifiers',
+              'models.vgg', 'utils.color', 'utils.metrics'):
         assert f'exsr_torch.{m}' in mods
     blocked = '; '.join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
     code = (f'import sys; {blocked}; import importlib; '

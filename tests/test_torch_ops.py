@@ -129,7 +129,11 @@ def test_serve_policy_matches():
     for n in (1, 8, 9, 17, 33):
         assert TS.best_bucket(n, table) == JS.best_bucket(n, table)
         assert TS.alt_bucket(n) == JS.alt_bucket(n)
-        assert TS.best_bucket(n) == n  # empty default table: identity
+        assert TS.best_bucket(n, {}) == n  # an empty table: identity
+    # the default table is the port's own batch sweep, read by exsr's policy
+    assert sorted(TS.MS_PER_FWD) == [1, 2, 4, 8, 16, 32, 64]
+    for n in range(1, 70):
+        assert TS.best_bucket(n) == JS.best_bucket(n, TS.MS_PER_FWD)
     a = np.ones((3, 2, 2, 1), np.float32)
     (t_pad,), t_n = TS.pad_batch([torch.from_numpy(a)], 8)
     (j_pad,), j_n = JS.pad_batch([a], 8)

@@ -195,3 +195,140 @@ def test_polyphase_wrappers_reject_what_the_kernels_do_not_take():
                          (0, 0))
     with pytest.raises(ValueError, match='fp32'):
         K.sepfilter_up(a.double(), k, k, 2, (0, 0))
+
+
+# even tap counts: replicate padding by k // 2 on both sides, then a VALID
+# correlation, so each axis with an even count grows by one sample
+EVEN = [4, 6, 8]
+EVEN_SF = [(2, (0, 0)), (3, (1, 1)), (4, (1, 2))]
+
+
+def _even_taps(k, seed):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(k), rng.standard_normal(k + 2)
+
+
+@pytest.mark.parametrize('k', EVEN)
+@pytest.mark.parametrize('sf,pre', EVEN_SF)
+def test_even_taps_match_exsr_filters(k, sf, pre):
+    """The three entry points (their plain versions, on the CPU) with even
+    tap counts against exsr's ``filter_replicate_same_separable``,
+    ``downscale_op`` and ``upscale_op``, shapes included, to 1e-5."""
+    from exsr.ops import filters as JF
+    kc, kr = _even_taps(k, 10 * k + sf)
+    rng = np.random.default_rng(sf)
+    lr = rng.uniform(size=(2, 7, 5, 3)).astype(np.float32)
+    hr = rng.uniform(size=(2, 7 * sf, 5 * sf, 3)).astype(np.float32)
+    tc, tr = (torch.tensor(t, dtype=torch.float32) for t in (kc, kr))
+    w2d = JF.depthwise_weights(np.outer(kc, kr), 3)
+    cases = (
+        (K.sepfilter_edge(torch.from_numpy(hr), tc, tr),
+         JF.filter_replicate_same_separable(
+             jnp.asarray(hr), JF.depthwise_weights_1d(kc, 3, 0),
+             JF.depthwise_weights_1d(kr, 3, 1)),
+         (2, 7 * sf + 1, 5 * sf + 1, 3)),
+        (K.sepfilter_down(torch.from_numpy(hr), tc, tr, sf, pre),
+         JF.downscale_op(jnp.asarray(hr), w2d, sf, pre), None),
+        (K.sepfilter_up(torch.from_numpy(lr), tc, tr, sf, pre),
+         JF.upscale_op(jnp.asarray(lr), w2d, sf, pre),
+         (2, 7 * sf + 1, 5 * sf + 1, 3)),
+    )
+    for out, ref, shape in cases:
+        assert out.shape == ref.shape
+        if shape is not None:
+            assert tuple(out.shape) == shape
+        np.testing.assert_allclose(_np(out), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize('k', EVEN)
+@pytest.mark.parametrize('sf,pre', EVEN_SF)
+@pytest.mark.parametrize('kind', ['E', 'D', 'U'])
+def test_even_tap_adjoint_tables_are_the_adjoint(k, sf, pre, kind):
+    """``<A x, y> == <x, A^T y>`` in float64 to 1e-12 for the tables of
+    every map with even taps, whose output has grown by one sample: the
+    tables take the grown output in and give the input's shape back."""
+    kc, kr = _even_taps(k, 7 * k + sf)
+    tabs = K.AdjointTables(kc, kr)
+    tc, tr = torch.from_numpy(kc), torch.from_numpy(kr)
+    rng = np.random.default_rng(k + sf)
+    h, w = (7, 5) if kind == 'U' else (7 * sf + 1, 5 * sf)
+    x = torch.from_numpy(rng.standard_normal((2, h, w, 3)))
+    y = {'E': lambda: K.sepfilter_edge_plain(x, tc, tr),
+         'D': lambda: K.sepfilter_down_plain(x, tc, tr, sf, pre),
+         'U': lambda: K.sepfilter_up_plain(x, tc, tr, sf, pre)}[kind]()
+    rows, cols = tabs.get(kind, h, w, sf, pre, 'cpu', torch.float64)
+    assert (rows.n_in, cols.n_in) == tuple(y.shape[1:3])
+    yy = torch.from_numpy(rng.standard_normal(tuple(y.shape)))
+    xt = K.sepfilter_taps_plain(yy, rows, cols)
+    assert xt.shape == x.shape
+    lhs, rhs = (y * yy).sum().item(), (x * xt).sum().item()
+    assert abs(lhs - rhs) <= 1e-12 * max(1.0, abs(lhs))
+    # the gradient of the entry point is that adjoint
+    xg = x.clone().float().requires_grad_(True)
+    fwd = {'E': lambda t: K.sepfilter_edge(t, tc.float(), tr.float()),
+           'D': lambda t: K.sepfilter_down(t, tc.float(), tr.float(), sf,
+                                           pre),
+           'U': lambda t: K.sepfilter_up(t, tc.float(), tr.float(), sf,
+                                         pre)}[kind]
+    fwd(xg).backward(yy.float())
+    np.testing.assert_allclose(xg.grad.numpy(), xt.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize('k', EVEN)
+@pytest.mark.parametrize('sf,pre', EVEN_SF)
+def test_even_tap_lists_equal_the_plain_up_filter(k, sf, pre):
+    """The up kernel's tap lists with even taps hold one column per grown
+    output sample and, applied in numpy, equal the plain up filter; the
+    kernel's staging bounds still hold every entry."""
+    kc, kr = _even_taps(k, 3 * k + sf)
+    h, w = 9, 4
+    rtab = K.polyphase_taps(h, sf, pre[0], kc.size)
+    ctab = K.polyphase_taps(w, sf, pre[1], kr.size)
+    assert (rtab.shape[1], ctab.shape[1]) == (h * sf + 1, w * sf + 1)
+    a = np.random.default_rng(sf).uniform(-1, 1, size=(2, h, w, 3))
+    out = apply_polyphase_taps(a, kc, kr, rtab, ctab)
+    ref = K.sepfilter_up_plain(torch.from_numpy(a), torch.from_numpy(kc),
+                               torch.from_numpy(kr), sf, pre)
+    np.testing.assert_allclose(out, _np(ref), atol=1e-12)
+    for n_lr in (1, 13, 37):
+        tab = K.polyphase_taps(n_lr, sf, pre[0], k)
+        n = tab.shape[1]
+        for tile in (32, 64):
+            span = (tile - 1 + 2 * (k // 2) + sf - 1) // sf + 1
+            for i0 in range(0, n, tile):
+                last = min(i0 + tile, n) - 1
+                lo = max(0, (i0 - k // 2 - pre[0]) // sf)
+                hi = min(n_lr - 1, (last + k // 2 - pre[0]) // sf)
+                e = tab[:, i0:last + 1]
+                idx = e[e >= 0] >> 8
+                assert lo <= idx.min() and idx.max() <= hi
+                assert hi - lo + 1 <= span
+
+
+def test_even_tap_enforce_fails_in_exsr_and_in_the_port():
+    """exsr's behaviour, not a fault of the port: at x3 an estimated 13 x 13
+    Gaussian kernel gives 4-tap down and up filters, so U grows the HR
+    image by one pixel and exsr's ``enforce`` fails on ``g`` of the
+    ungrown size; the port's ``enforce`` raises on the same shapes.  Its
+    ``downscale`` and ``upscale`` return exsr's shapes and values."""
+    from exsr.ops.resize import gaussian_2d
+    kernel = gaussian_2d(1.0, 13)
+    jc = J.CEM.create(J.CEMConf(scale_factor=3), upscale_kernel=kernel)
+    tc = T.CEM.create(T.CEMConf(scale_factor=3), upscale_kernel=kernel)
+    jf, tf = jc.device_filters(3), tc.device_filters(3, device='cpu')
+    assert [t.numel() for t in tf.w_down_1d + tf.w_up_1d] == [4] * 4
+    rng = np.random.default_rng(8)
+    lr = rng.uniform(size=(1, 20, 20, 3)).astype(np.float32)
+    g = rng.uniform(size=(1, 60, 60, 3)).astype(np.float32)
+    tl, tg = torch.from_numpy(lr), torch.from_numpy(g)
+    down, up = jf.downscale(jnp.asarray(g)), jf.upscale(jnp.asarray(lr))
+    assert down.shape == (1, 20, 20, 3) and up.shape == (1, 61, 61, 3)
+    np.testing.assert_allclose(_np(tf.downscale(tg)), np.asarray(down),
+                               atol=1e-5)
+    np.testing.assert_allclose(_np(tf.upscale(tl)), np.asarray(up),
+                               atol=1e-5)
+    with pytest.raises(TypeError, match=r'incompatible shapes.*'
+                       r'\(1, 60, 60, 3\), \(1, 61, 61, 3\)'):
+        jf.enforce(jnp.asarray(lr), jnp.asarray(g))
+    with pytest.raises(ValueError, match='x3 size'):
+        tf.enforce(tl, tg)

@@ -91,7 +91,7 @@ def test_build_model_needs_cuda_or_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TApp.build_model(4, nb=1, nf=16)
-    with pytest.raises(NotImplementedError, match='checkpoint'):
+    with pytest.raises(FileNotFoundError, match='checkpoint'):
         TApp.build_model(4, nb=1, nf=16, device='cpu', checkpoint='ckpt')
 
 
