@@ -64,10 +64,35 @@ Phases, one JSON line each:
    filters of an estimated x3 kernel at LR 128, batch 16, against their
    plain versions (0.0, the shapes equal) and their adjoints (1e-5 of the
    largest output), and ``CEMFilters.enforce`` raising on the grown shape,
-   as ``exsr``'s fails.
+   as ``exsr``'s fails;
+11. train: the SR trainer (``exsr_torch.train.srragan``) at the flagship
+   configuration, ``artifacts/run_flagship_r5/opt.json`` read through the
+   port's ``parse`` and ``experiment_from_reference_json`` (RRDBNet nf 64,
+   nb 23, gc 32, SVDinNormedOut Z; DiscriminatorVGG128 nf 64, nb 10, five
+   stride-2 stages on 128 x 128; batch 16, patch 208, wgan-gp, ten inner
+   MAP iterations; fp32, TF32 off) on seeded weights and a seeded
+   synthetic batch: a non-dual D step, a non-dual G step, a dual D step
+   and a dual G step, each a warm-up and two timed calls; host ms per
+   step, the MAP loop's device share, CEM-kernel launches against the
+   prediction, peak memory, what each step moves (G or D, D's running
+   statistics only in the D step, the L_struct ring only in the G step),
+   one profiled dual G step, and the CEM filter's entry points and
+   adjoints at the training shapes (LR 52, HR 208, batch 16) against
+   their plain versions;
+12. train_reference: one non-dual G step's gradients at full width, batch
+   2, patch 208, on the card against the CPU on the same draws, the
+   flagship D carried across (1e-4 of the largest element; beyond it, the
+   step in float64 on the CPU decides);
+13. train_cli: ``python -m exsr_torch.apps.train_sr``'s ``main`` at full
+   width on 16 synthetic 256 x 256 PNGs: two ``--init_phase`` G steps, then
+   a GAN-phase ``--resume`` with the flagship options (two dual D steps;
+   its controller holds G back) with validation and checkpoints; launches,
+   ``logs.npz``, the resumed step, and ``eval_sr`` loading the result.
 
 Phase 3 also checks and times ``sepfilter_taps``, the CEM filter's adjoint
-kernel, at the edit shape and at the main path's batch-16 shapes.
+kernel, at the edit shape and at the main path's batch-16 shapes; the
+kernels line gives each CEM kernel's training launches and times beside
+its serving ones (``train``).
 
 Any failed check raises and the script exits non-zero.  The last lines are
 the kernels summary, the ``nvidia-smi`` name and power limit, and
@@ -105,6 +130,22 @@ EVEN_ROW = {'edge': 'sepfilter_edge[hr]', 'down': 'sepfilter_down',
 EVAL_IMAGES, EVAL_HR, EVAL_NUM_Z, EVAL_GIF, EVAL_ITERS = 3, 512, 8, 3, 10
 SWEEP_BATCHES, SWEEP_REPS = (1, 2, 4, 8, 16, 32, 64), 3
 SWEEP_PROFILED = (1, 8)
+TRAIN_OPT = 'artifacts/run_flagship_r5/opt.json'
+# the trainer's four step kinds, in the order they run, and the timed
+# repeats of each after its warm-up call
+TRAIN_KINDS = (('d', False), ('g', False), ('d', True), ('g', True))
+TRAIN_REPS = 2
+# the CEM filter's entry points on the training path (no pre-pad: the
+# inv_hTh filter at LR, down and up-combine at HR) and the plain up kernel
+# of the decomposed D
+TRAIN_FILTER_CASES = ('sepfilter_edge[lr]', 'sepfilter_down',
+                      'sepfilter_up[up]', 'sepfilter_up[combine]')
+# the card-against-CPU check of one G step's gradients
+TRAIN_REF_BATCH = 2
+# the training CLI: synthetic training images (>= the flagship batch) and
+# validation images, their sizes, and the steps of each phase
+CLI_TRAIN_IMAGES, CLI_TRAIN_HR, CLI_VAL_IMAGES, CLI_VAL_HR = 16, 256, 2, 128
+CLI_INIT_STEPS, CLI_GAN_STEPS = 2, 2
 
 
 def emit(phase: str, **fields) -> None:
@@ -1104,6 +1145,377 @@ def phase_batch_sweep(name):
     return table
 
 
+def train_setup(device, models: bool = True):
+    """The flagship configuration (``TRAIN_OPT``, through the port's
+    ``parse`` and ``experiment_from_reference_json``): its trainer on
+    ``device``, the CEM filters and, with ``models``, a seeded generator
+    and D."""
+    from exsr_torch.cem.cem import CEM, CEMConf, cem_wrap
+    from exsr_torch.models.discriminators import DiscriminatorVGG128
+    from exsr_torch.models.rrdb import RRDBNet
+    from exsr_torch.options.config import (experiment_from_reference_json,
+                                           parse)
+    from exsr_torch.train.srragan import SRRaGANTrainer
+    exp = experiment_from_reference_json(parse(TRAIN_OPT, is_train=True))
+    cfg, net_g, net_d = exp.train, exp.network_g, exp.network_d
+    cem = CEM.create(CEMConf(scale_factor=cfg.scale))
+    filt = cem.device_filters(3, device=device)
+    wrapped = cem_wrap(lambda m, x, z: m(x, z), filt, upscale=cfg.scale)
+    margins = cem.invalidity_margins_hr
+    trainer = SRRaGANTrainer(
+        cfg, lambda m, x, z: wrapped(m, x, z, 0, pre_pad=False), margins)
+    if not models:
+        return exp, filt, trainer, None, None
+    g = RRDBNet(nf=net_g.nf, nb=net_g.nb, gc=net_g.gc, upscale=cfg.scale,
+                latent_channels=cfg.num_latent_channels, seed=0)
+    d = DiscriminatorVGG128(base_nf=net_d.nf, nb=net_d.n_layers,
+                            num_2_strides=net_d.num_2_strides,
+                            input_patch_size=cfg.patch_size - 2 * margins,
+                            seed=1)
+    return exp, filt, trainer, g, d
+
+
+def train_batch(cfg, batch, device, seed):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    hr, lr = cfg.patch_size, cfg.patch_size // cfg.scale
+    return {'lr': torch.from_numpy(rng.uniform(size=(batch, lr, lr, 3))
+                                   .astype(np.float32)).to(device),
+            'hr': torch.from_numpy(rng.uniform(size=(batch, hr, hr, 3))
+                                   .astype(np.float32)).to(device)}
+
+
+def train_launches(kind: str, dual: bool, iters: int) -> dict:
+    """The CEM-kernel launches of one step: a D step runs a forward per
+    fake (no backward: the fakes are detached), a G step a forward and a
+    backward per Z; a dual step adds the MAP loop's ``iters`` forwards and
+    backwards."""
+    fwd = 2 if dual else 1
+    inner = iters if dual else 0
+    return per_forward(fwd + inner,
+                       backwards=inner + (fwd if kind == 'g' else 0))
+
+
+def phase_train(device, name):
+    """The SR trainer's four step kinds at the flagship configuration on
+    the card: host ms per step, the MAP loop's device share, CEM-kernel
+    launches against the prediction, peak memory, what each step moves,
+    one profiled dual G step, and the CEM filter's entry points and
+    adjoints at the training shapes against their plain versions."""
+    import math
+    import torch
+    from exsr_torch.utils.misc import fetch_scalars
+    t_phase = time.perf_counter()
+    exp, filt, trainer, g, d = train_setup(device)
+    cfg = exp.train
+    batch_size = exp.train_data.batch_size
+    state = trainer.init_state(g, d, seed=2, device=device)
+    batch = train_batch(cfg, batch_size, device, seed=21)
+    map_events = []
+    optimal_z = trainer._optimal_z
+
+    def timed_optimal_z(*a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = optimal_z(*a, **k)
+        end.record()
+        map_events.append((start, end))
+        return out
+    trainer._optimal_z = timed_optimal_z
+
+    def snapshot(module, buffers=False):
+        src = module.buffers() if buffers else module.parameters()
+        return [t.detach().clone() for t in src]
+
+    def moved(module, before, buffers=False):
+        src = module.buffers() if buffers else module.parameters()
+        return any(not torch.equal(a, b) for a, b in zip(src, before))
+
+    records = {}
+    for kind, dual in TRAIN_KINDS:
+        key = f'{kind}_{"dual" if dual else "single"}'
+        want = train_launches(kind, dual, cfg.optimal_z_iters)
+        rec = records[key] = dict(ms=[], map_ms=[], peak_gib=[])
+        for rep in range(1 + TRAIN_REPS):
+            g0, d0 = snapshot(state.g), snapshot(state.d)
+            stats0 = snapshot(state.d, buffers=True)
+            count0 = int(state.ratio_stats.count)
+            map_events.clear()
+            torch.cuda.reset_peak_memory_stats(device)
+            zero_launches()
+            t0 = time.perf_counter()
+            if kind == 'd':
+                state, metrics = trainer.d_step(state, batch, dual=dual)
+            else:
+                state, metrics = trainer.g_step(state, batch, dual=dual)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            launches = read_launches()
+            check(launches == want,
+                  f'train {key} launches {launches}, predicted {want}')
+            metrics = fetch_scalars(metrics)
+            check(all(math.isfinite(v) for v in metrics.values()),
+                  f'train {key} metrics {metrics}')
+            check(moved(state.d, d0) == (kind == 'd')
+                  and moved(state.g, g0) == (kind == 'g'),
+                  f'train {key} moved the wrong parameters')
+            check(moved(state.d, stats0, buffers=True) == (kind == 'd'),
+                  f'train {key}: D running statistics')
+            count = int(state.ratio_stats.count)
+            check(count == count0 + (batch_size if kind == 'g' else 0),
+                  f'train {key}: ring count {count0} -> {count}')
+            state = trainer.advance(state)
+            if rep == 0:
+                rec.update(launches=launches, predicted=want,
+                           metrics=metrics)
+                continue
+            rec['ms'].append(ms)
+            rec['map_ms'].append(sum(s.elapsed_time(e)
+                                     for s, e in map_events))
+            rec['peak_gib'].append(torch.cuda.max_memory_allocated(device)
+                                   / 2 ** 30)
+        rec['map_share'] = sum(rec['map_ms']) / sum(rec['ms'])
+        emit('train_step', device=name, step=key, **rec)
+    trainer._optimal_z = optimal_z
+    iteration = {k: (records[f'd_{k}']['ms'][-1]
+                     + records[f'g_{k}']['ms'][-1]) for k in ('single',
+                                                              'dual')}
+    profile = profile_forward(
+        lambda _: trainer.g_step(state, batch, dual=True), None)
+    emit('train_profile', device=name, step='g_dual', **profile)
+    d_state = {k: v.cpu() for k, v in state.d.state_dict().items()}
+    del state, batch
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=device).manual_seed(23)
+    lr_size = cfg.patch_size // cfg.scale
+    kern = sepfilter_kernels(filt, gen, device, batch_size, lr_size,
+                             cases=TRAIN_FILTER_CASES)
+    taps = sepfilter_taps_kernels(filt, gen, device, batch_size, lr_size)
+    for k, rec in kern.items():
+        emit('train_kernel', name=k, batch=batch_size, lr=lr_size, **rec)
+    for k, rec in taps.items():
+        emit('train_kernel', name=f'sepfilter_taps[{k}]', batch=batch_size,
+             lr=lr_size, **rec)
+    emit('train', device=name, opt=TRAIN_OPT, batch=batch_size,
+         patch=cfg.patch_size, lr=lr_size, nb=exp.network_g.nb,
+         nf=exp.network_g.nf, gc=exp.network_g.gc,
+         nz=cfg.num_latent_channels, latent=cfg.latent_channels,
+         d_nf=exp.network_d.nf, d_nb=exp.network_d.n_layers,
+         d_strides=exp.network_d.num_2_strides, gan=cfg.gan_type,
+         optimal_z_iters=cfg.optimal_z_iters, tf32=False,
+         ms_per_iteration=iteration,
+         phase_s=time.perf_counter() - t_phase)
+    return records, kern, taps, d_state
+
+
+def _reference_grads(where, g, d, batch, draws):
+    """One non-dual G step's gradients (with the GAN term) on ``where``:
+    a device, or ``'float64'`` for the CPU in float64."""
+    import copy
+    from exsr_torch.ops.kernels.sepfilter import float64_reference
+    from exsr_torch.train.srragan import full_fp32
+    f64 = where == 'float64'
+    dev = 'cpu' if f64 else where
+    _, _, trainer, _, _ = train_setup(dev, models=False)
+    state = trainer.init_state(copy.deepcopy(g), copy.deepcopy(d), seed=3,
+                               device=dev)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    draws = {k: v.to(dev) for k, v in draws.items()}
+    ctx = full_fp32()
+    if f64:
+        state.g.double()
+        state.d.double()
+        state.ratio_stats.buffer = state.ratio_stats.buffer.double()
+        batch = {k: v.double() for k, v in batch.items()}
+        draws = {k: v.double() for k, v in draws.items()}
+        ctx = float64_reference()
+    t0 = time.perf_counter()
+    with ctx:
+        grads, _, _ = trainer.g_grads(state, batch['lr'], batch['hr'],
+                                      draws, False, True)
+    names = [n for n, _ in state.g.named_parameters()]
+    grads = dict(zip(names, (t.detach().cpu().double() for t in grads)))
+    return grads, time.perf_counter() - t0
+
+
+def phase_train_reference(device, name, d_state):
+    """One non-dual G step with the GAN term at full width, batch 2,
+    patch 208, on the card and on the CPU on the same draws, the flagship
+    D carried across: the gradients against each other, within 1e-4 of
+    the largest element.  Where cuDNN's sums leave a larger gap, the same
+    step in float64 on the CPU (the plain CEM filters,
+    ``sepfilter.float64_reference``) says how far each fp32 gradient is
+    from exact: the card's must be no farther than three times the
+    CPU's."""
+    t_phase = time.perf_counter()
+    exp, _, trainer, g, d = train_setup(device)
+    d.load_state_dict(d_state)
+    cfg = exp.train
+    batch = train_batch(cfg, TRAIN_REF_BATCH, 'cpu', seed=25)
+    state = trainer.init_state(g, d, seed=3, device=device)
+    draws = {k: v.cpu() for k, v in trainer.draw_g(
+        state, batch['hr'].shape, dual=False).items()}
+    g, d = state.g.cpu(), state.d.cpu()
+    del state, trainer
+    card, card_s = _reference_grads(device, g, d, batch, draws)
+    cpu, cpu_s = _reference_grads('cpu', g, d, batch, draws)
+    rec = dict(batch=TRAIN_REF_BATCH, patch=cfg.patch_size,
+               nb=exp.network_g.nb, nf=exp.network_g.nf, dual=False,
+               use_gan=True, tol=1e-4, max_rel_err=_grad_gap(card, cpu),
+               worst=_worst(card, cpu), card_s=card_s, cpu_s=cpu_s)
+    if rec['max_rel_err'] > 1e-4:
+        exact, rec['float64_s'] = _reference_grads('float64', g, d, batch,
+                                                   draws)
+        rec.update(card_vs_float64=_grad_gap(card, exact),
+                   cpu_vs_float64=_grad_gap(cpu, exact),
+                   card_worst=_worst(card, exact),
+                   cpu_worst=_worst(cpu, exact))
+        check(rec['card_vs_float64'] <= max(1e-4,
+                                            3 * rec['cpu_vs_float64']),
+              f'train gradients card vs float64 {rec}')
+    rec['phase_s'] = time.perf_counter() - t_phase
+    emit('train_reference', device=name, **rec)
+    return rec
+
+
+def _grad_gap(a: dict, b: dict) -> float:
+    """The largest difference over all elements, as a share of the largest
+    element of ``b``."""
+    return max(_grad_gaps(a, b).values())
+
+
+def _grad_gaps(a: dict, b: dict) -> dict:
+    """Each parameter's largest difference, as a share of the largest
+    element of ``b`` over all parameters."""
+    scale = max(float(y.abs().max()) for y in b.values())
+    return {k: float((a[k] - b[k]).abs().max()) / scale for k in b}
+
+
+def _worst(a: dict, b: dict, n: int = 3) -> dict:
+    gaps = _grad_gaps(a, b)
+    return {k: gaps[k] for k in sorted(gaps, key=gaps.get)[-n:]}
+
+
+def phase_train_cli(device, name):
+    """The training CLI at full width on the card: an ``--init_phase`` run
+    (G steps), then a GAN-phase ``--resume`` with the flagship options (its
+    controller runs D steps and holds G back), a validation pass and the
+    checkpoints; ``logs.npz``, the resumed step and ``eval_sr``'s loading
+    of the result."""
+    import contextlib
+    import io
+    import math
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from exsr_torch.apps import eval_sr, train_sr
+    from exsr_torch.options.config import (experiment_from_reference_json,
+                                           parse)
+    from exsr_torch.train.checkpoints import CheckpointManager
+    from exsr_torch.utils.logging import MetricLog
+    t_phase = time.perf_counter()
+    iters = experiment_from_reference_json(
+        parse(TRAIN_OPT, is_train=True)).train.optimal_z_iters
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        hr_dir, val_dir, exp = f'{tmp}/hr', f'{tmp}/val', f'{tmp}/exp'
+        os.makedirs(hr_dir)
+        os.makedirs(val_dir)
+        _write_pngs(hr_dir, CLI_TRAIN_IMAGES, CLI_TRAIN_HR, seed=31)
+        _write_pngs(val_dir, CLI_VAL_IMAGES, CLI_VAL_HR, seed=37)
+        base = ['--hr_dir', hr_dir, '--exp_dir', exp, '--print_freq', '1']
+        runs = (('init', base + ['--init_phase', '--niter',
+                                 str(CLI_INIT_STEPS), '--ckpt_freq', '1'],
+                 per_forward(CLI_INIT_STEPS, backwards=CLI_INIT_STEPS)),
+                ('gan', base + ['--opt', TRAIN_OPT, '--resume', '--niter',
+                                str(CLI_INIT_STEPS + CLI_GAN_STEPS),
+                                '--val_hr_dir', val_dir, '--val_freq',
+                                str(CLI_INIT_STEPS + CLI_GAN_STEPS),
+                                '--ckpt_freq', '1'],
+                 # dual D steps, then one validation forward per Z (0, -1,
+                 # 1) per validation image
+                 per_forward(CLI_GAN_STEPS * (2 + iters)
+                             + 3 * CLI_VAL_IMAGES,
+                             backwards=CLI_GAN_STEPS * iters)))
+        for tag, argv, want in runs:
+            out = io.StringIO()
+            zero_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                train_sr.main(argv)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            text = out.getvalue()
+            check(launches == want,
+                  f'train_cli {tag} launches {launches}, predicted {want}')
+            lines = [json.loads(ln) for ln in text.splitlines()
+                     if ln.startswith('{')]
+            results[tag] = dict(launches=launches, wall_s=wall,
+                                steps=[ln for ln in lines
+                                       if 'steps_per_s' in ln])
+        check(f'resumed at step {CLI_INIT_STEPS}' in text,
+              'train_cli did not resume at the init phase\'s last step')
+        log = MetricLog().load(f'{exp}/logs.npz')
+        last = CLI_INIT_STEPS + CLI_GAN_STEPS
+        check(log.last('l_g_pix') is not None
+              and log.last('l_d_total') is not None
+              and log.last('psnr_val') is not None,
+              f'train_cli logs {sorted(log.series)}')
+        check(all(math.isfinite(v) for s in log.series.values()
+                  for _, v in s), 'train_cli non-finite log value')
+        # a step's metrics are read after the next step is enqueued and
+        # logged with it; the last step's are read after the loop
+        d_steps = [s for s, _ in log.series['l_d_total']]
+        check(d_steps == list(range(CLI_INIT_STEPS + 2, last + 1)),
+              f'train_cli D losses logged at steps {d_steps}')
+        check(CheckpointManager(f'{exp}/ckpt').latest_step() == last,
+              'train_cli last checkpoint')
+        _, fwd = eval_sr.build_model(SCALE, checkpoint=f'{exp}/ckpt')
+        lr = np.random.default_rng(41).uniform(
+            size=(1, 32, 32, 3)).astype(np.float32)
+        sr = fwd(lr, np.zeros((1, 128, 128, 3), np.float32))
+        check(sr.device.type == 'cuda' and tuple(sr.shape) == (1, 128, 128, 3)
+              and bool(torch.isfinite(sr).all()),
+              'eval_sr on the trained checkpoint')
+        results.update(psnr_val=log.last('psnr_val'),
+                       per_pix_std_val=log.last('per_pix_STD_val'),
+                       l_d_total=log.last('l_d_total'),
+                       l_g_pix=log.last('l_g_pix'), last_step=last,
+                       eval_checkpoint_ok=True)
+    results['phase_s'] = time.perf_counter() - t_phase
+    emit('train_cli', device=name, images=CLI_TRAIN_IMAGES,
+         hr=CLI_TRAIN_HR, **results)
+    return results
+
+
+def train_rows(records, kern, taps) -> dict:
+    """The training path's fields of each CEM kernel's row of the kernels
+    line: launches per step kind and per iteration (D then G step), and
+    the kernel at the training shapes (the adjoints' three launches of one
+    backward summed)."""
+    entries = {'sepfilter_edge': [kern['sepfilter_edge[lr]']],
+               'sepfilter_down': [kern['sepfilter_down']],
+               'sepfilter_up': [kern['sepfilter_up[combine]']],
+               'sepfilter_taps': list(taps.values())}
+    rows = {}
+    for counter, recs in entries.items():
+        per_step = {k: r['launches'][counter] for k, r in records.items()}
+        rows[counter] = dict(
+            launches_per_step=per_step,
+            launches_per_iteration={
+                k: per_step[f'd_{k}'] + per_step[f'g_{k}']
+                for k in ('single', 'dual')},
+            shape=recs[0].get('shape', recs[0].get('shape_in')),
+            max_abs_err=max(r['max_abs_err'] for r in recs),
+            **{f: sum(r[f] for r in recs) for f in (
+                'ms', 'graph_ms', 'plain_ms', 'bound_ms')})
+    return rows
+
+
 def taps_row(kern, edit_runs):
     """The CEM filter's adjoint kernel on the edit path: its three launches
     of one backward (U^T, E^T, D^T) at the window-32 crop, summed; the
@@ -1171,6 +1583,11 @@ def main() -> int:
     phase_eval_cli(device, name)
     phase_batch_sweep(name)
     even, even_taps = phase_even_taps(device)
+    train_records, train_kern, train_taps, d_state = phase_train(device,
+                                                                 name)
+    phase_train_reference(device, name, d_state)
+    phase_train_cli(device, name)
+    train = train_rows(train_records, train_kern, train_taps)
 
     # launches: the total over the forwards of the path that runs the
     # kernel (the main path; the fused path for rdb)
@@ -1190,7 +1607,7 @@ def main() -> int:
     hr = kern['sepfilter_edge[hr]']
     summary = [
         row(f'sepfilter_{k}', key, launches, forwards, **sep, **extra,
-            graph_ms=kern[key]['graph_ms'],
+            graph_ms=kern[key]['graph_ms'], train=train[f'sepfilter_{k}'],
             **{f'even_taps_{f}': even[EVEN_ROW[k]][f] for f in (
                 'taps', 'shape', 'max_abs_err', 'ms', 'graph_ms',
                 'bound_ms')})
@@ -1206,7 +1623,7 @@ def main() -> int:
         row('rdb', 'rdb_bf16', fused_launches, fused_forwards,
             source='exsr_torch/csrc/rdb.cu',
             replaces='exsr/ops/pallas/rrdb_block.py:145', path='fused'),
-        dict(taps_row(kern, edit_runs),
+        dict(taps_row(kern, edit_runs), train=train['sepfilter_taps'],
              even_taps_max_rel_err=max(r['max_rel_err']
                                        for r in even_taps.values()),
              even_taps_ms=sum(r['ms'] for r in even_taps.values()),

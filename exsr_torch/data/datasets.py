@@ -1,17 +1,21 @@
-"""Image-folder datasets of the evaluation CLI.
+"""Image-folder datasets and the batch loader of the SR CLIs.
 
-The port's own copy of ``exsr/data/datasets.py:34-157`` as far as
-evaluation needs it: :func:`list_images`, :func:`read_img` (PIL, as
+The port's own copy of ``exsr/data/datasets.py`` as far as evaluation and
+SR training need it: :func:`list_images`, :func:`read_img` (PIL, as
 ``exsr`` reads images), :class:`LRHRDataset` (LR read from ``lr_root`` or
 synthesized from HR by the port's ``imresize``; random LR-aligned crops and
-flip/rotate augmentation when ``train`` and ``patch_size`` are set) and
-:class:`LRDataset`.  Items are float32 HWC numpy arrays in [0, 1].
+flip/rotate augmentation when ``train`` and ``patch_size`` are set),
+:class:`LRDataset`, and :class:`DataLoader`, the threaded, seeded batch
+iterator.  Items are float32 HWC numpy arrays in [0, 1]; batches stack
+them to NHWC.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Sequence
+import queue
+import threading
+from typing import Iterator, Sequence
 
 import numpy as np
 
@@ -139,3 +143,98 @@ class LRDataset:
     def __getitem__(self, idx: int, rng=None):
         return {'lr': read_img(self.lr_paths[idx]).astype(np.float32),
                 'path': self.lr_paths[idx]}
+
+
+class DataLoader:
+    """Threaded, seeded, prefetching batch iterator of NHWC numpy batches.
+
+    Each batch is collated by one of ``num_threads`` threads with its own
+    ``np.random.default_rng((seed, epoch, batch))``, so the batches do not
+    depend on the threads' timing.  With ``shuffle`` the order is permuted
+    per epoch (seed ``seed + epoch``); ``drop_last`` drops the last partial
+    batch and refuses a dataset smaller than one batch.
+    """
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 seed: int = 0, num_threads: int = 4, prefetch: int = 4,
+                 drop_last: bool = True):
+        if drop_last and len(dataset) < batch_size:
+            raise ValueError(
+                f'dataset has {len(dataset)} items < batch_size '
+                f'{batch_size}: with drop_last every epoch would be empty '
+                '(the train loop would spin forever)')
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.num_threads = max(1, num_threads)
+        self.prefetch = prefetch
+        self.drop_last = drop_last
+
+    def __len__(self):
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else \
+            -(-n // self.batch_size)
+
+    def _epoch_indices(self, epoch: int) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + epoch).shuffle(idx)
+        return idx
+
+    def epoch(self, epoch: int = 0) -> Iterator[dict]:
+        """The batches of one epoch, in order."""
+        indices = self._epoch_indices(epoch)
+        n_batches = len(self)
+        work: queue.Queue = queue.Queue()
+        done: dict[int, dict] = {}
+        cv = threading.Condition()
+        for b in range(n_batches):
+            work.put(b)
+
+        def collate(batch_idx):
+            rng = np.random.default_rng((self.seed, epoch, batch_idx))
+            items = [self.dataset.__getitem__(int(i), rng=rng)
+                     for i in indices[batch_idx * self.batch_size:
+                                      (batch_idx + 1) * self.batch_size]]
+            return {k: ([it[k] for it in items] if k == 'path'
+                        else np.stack([it[k] for it in items]))
+                    for k in items[0]}
+
+        def worker():
+            while True:
+                try:
+                    b = work.get_nowait()
+                except queue.Empty:
+                    return
+                batch = collate(b)
+                with cv:
+                    done[b] = batch
+                    cv.notify_all()
+
+        for _ in range(self.num_threads):
+            threading.Thread(target=worker, daemon=True).start()
+        for b in range(n_batches):
+            with cv:
+                while b not in done:
+                    cv.wait()
+                batch = done.pop(b)
+            yield batch
+
+    def stream(self, start_epoch: int = 0) -> Iterator[dict]:
+        """The batches of epoch after epoch, from ``start_epoch``: a
+        background producer keeps up to ``prefetch`` of them ready across
+        epoch boundaries (an epoch of a small dataset may be a single
+        batch), with the same seeds and order as :meth:`epoch` calls."""
+        out: queue.Queue = queue.Queue(maxsize=max(1, self.prefetch))
+
+        def produce():
+            e = start_epoch
+            while True:
+                for batch in self.epoch(e):
+                    out.put(batch)
+                e += 1
+
+        threading.Thread(target=produce, daemon=True).start()
+        while True:
+            yield out.get()

@@ -42,6 +42,7 @@ through the same kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 
@@ -322,9 +323,28 @@ def sepfilter_taps(x: torch.Tensor, rows: AxisTable, cols: AxisTable
     return out
 
 
+_float64_cpu = False
+
+
+@contextlib.contextmanager
+def float64_reference():
+    """Within the block the entry points take float64 tensors on the CPU,
+    where their plain versions compute in the input's dtype (the taps stay
+    the fp32 values the kernels use): a float64 reference for a
+    computation that runs in fp32.  CUDA tensors stay fp32 only."""
+    global _float64_cpu
+    saved, _float64_cpu = _float64_cpu, True
+    try:
+        yield
+    finally:
+        _float64_cpu = saved
+
+
 def _check(x: torch.Tensor, kcol: torch.Tensor, krow: torch.Tensor,
            name: str = 'x') -> None:
-    if x.dim() != 4 or x.dtype != torch.float32:
+    dtypes = (torch.float32, torch.float64) if _float64_cpu and \
+        x.device.type == 'cpu' else (torch.float32,)
+    if x.dim() != 4 or x.dtype not in dtypes:
         raise ValueError(f'{name} must be fp32 [B, H, W, C], got {x.dtype} '
                          f'{tuple(x.shape)}')
     if not x.is_contiguous():

@@ -1,18 +1,32 @@
-"""Host helpers of the edit session and the evaluation CLI: the
-periodicity tool's autocorrelation and line sampling, the scribble tool's
-masks, and Z maps made from images or stored as PNG.
+"""Host helpers of the edit session and the CLIs: the periodicity tool's
+autocorrelation and line sampling, the scribble tool's masks, Z maps made
+from images or stored as PNG, scheduled loss weights, the training loop's
+one-transfer metric fetch, and its cooperative SIGINT stop.
 
-The port's own copies of ``im_to_z_input``, ``z_map_to_png``,
-``png_to_z_map`` (``exsr/utils/misc.py:41-82``),
+The port's own copies of ``varying_weight``, ``im_to_z_input``,
+``z_map_to_png``, ``png_to_z_map`` (``exsr/utils/misc.py:31-82``),
 ``overlap_normalized_autocorr``, ``first_autocorr_peak``,
-``bilinear_sample_line`` and ``scribble_mask_components``
-(``exsr/utils/misc.py:98-187``); numpy and scipy only.
+``bilinear_sample_line``, ``scribble_mask_components``
+(``exsr/utils/misc.py:98-187``), and of ``fetch_scalars``,
+``stage_scalars``, ``read_scalars`` and ``install_sigint_stop``
+(``exsr/utils/misc.py:189-283``) over torch tensors.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 from scipy.ndimage import uniform_filter, zoom
 from scipy.signal import convolve2d
+
+
+def varying_weight(step, steps, values, legitimate_range=None):
+    """A piecewise-linear scheduled loss weight: ``values`` at ``steps``,
+    interpolated, optionally clipped to ``legitimate_range``."""
+    w = float(np.interp(step, np.asarray(steps, np.float64),
+                        np.asarray(values, np.float64)))
+    if legitimate_range is not None:
+        w = float(np.clip(w, *legitimate_range))
+    return w
 
 
 def im_to_z_input(image: np.ndarray, size_hw: tuple[int, int],
@@ -105,3 +119,96 @@ def scribble_mask_components(scribble_mask: np.ndarray, mask: np.ndarray,
     tv_masks = [(mask * (scribble_mask == i)).astype(np.float32)
                 for i in tv_ids]
     return mult, l1_mask, tv_masks
+
+
+def _scalar_keys(metrics) -> list:
+    return [k for k, v in metrics.items() if np.ndim(v) == 0
+            and not isinstance(v, (str, bytes))]
+
+
+def _stack(metrics, keys) -> torch.Tensor:
+    device = next((metrics[k].device for k in keys
+                   if isinstance(metrics[k], torch.Tensor)), 'cpu')
+    return torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32,
+                                        device=device).reshape(())
+                        for k in keys])
+
+
+def fetch_scalars(metrics) -> dict:
+    """A dict's scalar entries (0-d tensors or numbers) as host floats,
+    read from the device in one transfer; other entries pass through."""
+    keys = _scalar_keys(metrics)
+    if not keys:
+        return dict(metrics)
+    out = dict(metrics)
+    out.update(zip(keys, _stack(metrics, keys).cpu().tolist()))
+    return out
+
+
+def stage_scalars(metrics):
+    """Start the one-transfer fetch of a dict's scalar entries: they are
+    stacked on the device and copied, without waiting, into pinned host
+    memory behind a CUDA event, so that a later :func:`read_scalars`
+    overlaps the copy with whatever the caller enqueues in between (the
+    training loop reads step t after enqueueing step t + 1)."""
+    keys = _scalar_keys(metrics)
+    staged = None
+    if keys:
+        stacked = _stack(metrics, keys)
+        if stacked.is_cuda:
+            host = torch.empty(stacked.shape, dtype=stacked.dtype,
+                               pin_memory=True)
+            host.copy_(stacked, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            staged = (host, event)
+        else:
+            staged = (stacked, None)
+    rest = {k: v for k, v in metrics.items() if k not in set(keys)}
+    return keys, staged, rest
+
+
+def read_scalars(staged) -> dict:
+    """A :func:`stage_scalars` handle as host floats (waits for its
+    copy)."""
+    keys, held, rest = staged
+    out = dict(rest)
+    if keys:
+        values, event = held
+        if event is not None:
+            event.synchronize()
+        out.update(zip(keys, values.tolist()))
+    return out
+
+
+def install_sigint_stop():
+    """Turn the first SIGINT into a cooperative stop request.
+
+    A training CLI stopped at a deadline with ``timeout --signal=INT``
+    would otherwise unwind past its final forced checkpoint.  The handler
+    records the request and puts the previous handler back, so a second
+    SIGINT still interrupts at once.  Returns a callable that the loop
+    polls; its ``restore()`` puts the previous handler back, for callers
+    in the same process (tests, pipelines).
+    """
+    import signal
+
+    flag = {'stop': False}
+    prev = signal.getsignal(signal.SIGINT)
+
+    def _handler(signum, frame):
+        flag['stop'] = True
+        signal.signal(signal.SIGINT, prev)
+        print('SIGINT: stopping at the next step boundary '
+              '(send again to hard-interrupt)', flush=True)
+
+    class _Stop:
+        def __call__(self):
+            return flag['stop']
+
+        @staticmethod
+        def restore():
+            signal.signal(signal.SIGINT, prev)
+
+    signal.signal(signal.SIGINT, _handler)
+    return _Stop()

@@ -6,6 +6,8 @@ This file imports no JAX, so that it runs on a GPU machine without it::
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -564,3 +566,180 @@ def test_eval_cli_on_cuda(cuda, tmp_path):
     saved = json.loads((tmp_path / 'out' / 'summary.json').read_text())
     assert len(saved['per_image']) == 2
     assert (tmp_path / 'out' / 'im1_SR.png').exists()
+
+
+def _tiny_trainer(device, overrides=None):
+    """A trainer at nb 1, nf 16, gc 8, patch 112 (LR 28), D nb 4 / nf 8 /
+    one stride-2 stage, two inner MAP iterations, on ``device``, with
+    seeded weights and a seeded batch of 4."""
+    from exsr_torch.cem.cem import cem_wrap
+    from exsr_torch.models.discriminators import DiscriminatorVGG128
+    from exsr_torch.train.srragan import SRRaGANTrainer, TrainConfig
+    cem = CEM.create(CEMConf(scale_factor=4))
+    filt = cem.device_filters(3, device=device)
+    wrapped = cem_wrap(lambda m, x, z: m(x, z), filt, upscale=4)
+    m = cem.invalidity_margins_hr
+    cfg = TrainConfig(**{'optimal_z_iters': 2, **(overrides or {})})
+    tr = SRRaGANTrainer(cfg, lambda g, x, z: wrapped(g, x, z, 0,
+                                                     pre_pad=False), m)
+    state = tr.init_state(
+        RRDBNet(nf=16, nb=1, gc=8, latent_channels=3, seed=4),
+        DiscriminatorVGG128(8, 4, 1, 112 - 2 * m, seed=5), seed=6,
+        device=device)
+    rng = np.random.default_rng(7)
+    batch = {k: torch.from_numpy(rng.uniform(size=(4, s, s, 3)).astype(
+        np.float32)).to(device) for k, s in (('lr', 28), ('hr', 112))}
+    return tr, state, batch
+
+
+def _map(x, fn):
+    """``fn`` on every tensor of a draw (a tensor or nested lists)."""
+    return [_map(v, fn) for v in x] if isinstance(x, list) else fn(x)
+
+
+def _step_grads(kind, dual, dev, draws, float64=False):
+    """One step's gradients, metrics and D's state on ``dev`` from
+    ``draws`` (``float64``: the CPU's plain path in float64)."""
+    from exsr_torch.ops.kernels.sepfilter import float64_reference
+    tr, state, batch = _tiny_trainer(dev)
+    cast = (lambda t: t.to(dev, torch.float64)) if float64 else \
+        (lambda t: t.to(dev))
+    draws = {k: _map(v, cast) for k, v in draws.items()}
+    ctx = float64_reference() if float64 else contextlib.nullcontext()
+    if float64:
+        state.g.double()
+        state.d.double()
+        state.ratio_stats.buffer = state.ratio_stats.buffer.double()
+        batch = {k: v.double() for k, v in batch.items()}
+    with ctx:
+        if kind == 'd':
+            grads, metrics = tr.d_grads(state, batch['lr'], batch['hr'],
+                                        draws, dual)
+        else:
+            grads, metrics, _ = tr.g_grads(state, batch['lr'], batch['hr'],
+                                           draws, dual, True)
+    return ([g.detach().cpu().double() for g in grads],
+            {k: float(v) for k, v in metrics.items()},
+            {k: v.cpu() for k, v in state.d.state_dict().items()})
+
+
+def _gap(a, b):
+    scale = max(float(y.abs().max()) for y in b)
+    return max(float((x - y).abs().max()) for x, y in zip(a, b)) / scale
+
+
+@pytest.mark.parametrize('kind,dual', [('d', False), ('g', False),
+                                       ('d', True), ('g', True)])
+def test_train_step_on_cuda_matches_cpu(cuda, kind, dual):
+    """Each of the trainer's four step kinds on the card against the CPU,
+    on the same draws: gradients within 1e-4 of the largest element,
+    metrics within 1e-4 relative, D's running statistics within 1e-5, the
+    CEM kernels launched as the step predicts.  The non-dual G step's last
+    HR conv gradient cancels through the CEM down to fp32 rounding (1.4e-4
+    to 2.4e-4 from float64 on the CPU at this size): beyond 1e-4 the step
+    in float64 on the CPU decides, the card no farther from it than three
+    times the CPU."""
+    from exsr_torch.ops.kernels.sepfilter import sepfilter_taps
+    tr, state, batch = _tiny_trainer(cuda)
+    draw = tr.draw_d if kind == 'd' else tr.draw_g
+    draws = draw(state, batch['hr'].shape, dual)
+    sepfilter_edge.launches = sepfilter_taps.launches = 0
+    g_gpu, m_gpu, d_gpu = _step_grads(kind, dual, cuda, draws)
+    inner = 2 if dual else 0
+    fwd = (2 if dual else 1) + inner
+    bwd = inner + ((2 if dual else 1) if kind == 'g' else 0)
+    assert (sepfilter_edge.launches, sepfilter_taps.launches) == \
+        (2 * fwd, 3 * bwd)
+    g_cpu, m_cpu, d_cpu = _step_grads(kind, dual, torch.device('cpu'), draws)
+    err = _gap(g_gpu, g_cpu)
+    if err >= 1e-4 and (kind, dual) == ('g', False):
+        exact = _step_grads(kind, dual, torch.device('cpu'), draws,
+                            float64=True)[0]
+        assert _gap(g_gpu, exact) <= max(1e-4, 3 * _gap(g_cpu, exact))
+    else:
+        assert err < 1e-4
+    for k, v in m_cpu.items():
+        assert m_gpu[k] == pytest.approx(v, rel=1e-4, abs=1e-6), k
+    for k, v in d_cpu.items():
+        torch.testing.assert_close(d_gpu[k], v, atol=1e-5, rtol=0)
+
+
+def test_d_running_stats_left_alone_by_penalty_and_g_step(cuda):
+    """On the card: a D step moves D's running statistics by the real pass
+    and each fake pass only (the penalty's passes leave them), and a G
+    step leaves them and D's Adam state untouched."""
+    tr, state, batch = _tiny_trainer(cuda)
+    bn = state.d.conv1.bn
+    calls = []
+    state.d.register_forward_pre_hook(
+        lambda m, args: calls.append(len(args) > 1 and args[1]))
+    before = bn.running_var.clone()
+    tr.d_step(state, batch, dual=True)
+    # the real pass and two fakes update; the two penalties do not
+    assert calls.count(True) == 3 and calls.count(False) == 2
+    assert not torch.equal(bn.running_var, before)
+    stats = [t.clone() for t in state.d.buffers()]
+    opt = {k: {n: t.clone() for n, t in v.items()
+               if isinstance(t, torch.Tensor)}
+           for k, v in state.d_opt.state.items()}
+    calls.clear()
+    tr.g_step(state, batch, dual=True)
+    assert calls and not any(calls)
+    for a, b in zip(state.d.buffers(), stats):
+        assert torch.equal(a, b)
+    for k, v in state.d_opt.state.items():
+        for n, t in opt[k].items():
+            assert torch.equal(v[n], t)
+
+
+@pytest.mark.parametrize('case', ['sepfilter_edge[lr]', 'sepfilter_down',
+                                  'sepfilter_up[up]',
+                                  'sepfilter_up[combine]'])
+def test_cem_entry_points_at_training_shapes(cuda, case):
+    """The CEM filter's entry points at the flagship training shapes (LR
+    52, HR 208, batch 16) against their plain versions (1e-5) and their
+    compositions through the same-size kernel (bit for bit)."""
+    from exsr_torch.ops.kernels.measure import sepfilter_kernels
+    filt = CEM.create(CEMConf(scale_factor=4)).device_filters(3, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    rec = sepfilter_kernels(filt, gen, cuda, 16, 52, cases=(case,),
+                            references=False)[case]
+    assert rec['max_abs_err'] <= 1e-5 and rec['bit_equal_composition']
+
+
+def test_cem_adjoints_at_training_shapes(cuda):
+    """``sepfilter_taps``'s three adjoints at LR 52, HR 208, batch 16
+    against the plain version (1e-5 of the largest output)."""
+    from exsr_torch.ops.kernels.measure import sepfilter_taps_kernels
+    filt = CEM.create(CEMConf(scale_factor=4)).device_filters(3, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    recs = sepfilter_taps_kernels(filt, gen, cuda, 16, 52)
+    assert set(recs) == {'U', 'E', 'D'}
+    assert all(r['max_rel_err'] <= 1e-5 for r in recs.values())
+
+
+def test_train_cli_on_cuda(cuda, tmp_path):
+    """The training CLI on the card at a tiny size: D steps, validation,
+    checkpoints, then --resume (a step's metrics are logged with the next
+    step's, so a run's last step logs the D loss of the one before)."""
+    from PIL import Image
+    from exsr_torch.apps import train_sr
+    from exsr_torch.utils.logging import MetricLog
+    rng = np.random.default_rng(1)
+    d = tmp_path / 'hr'
+    d.mkdir()
+    for i in range(3):
+        Image.fromarray((rng.uniform(size=(128, 128, 3)) * 255)
+                        .astype(np.uint8)).save(d / f'im{i}.png')
+    exp = str(tmp_path / 'exp')
+    args = ['--hr_dir', str(d), '--val_hr_dir', str(d), '--scale', '4',
+            '--patch', '112', '--batch', '2', '--nb', '1', '--nf', '8',
+            '--gc', '4', '--d_nb', '4', '--d_nf', '8', '--d_strides', '1',
+            '--exp_dir', exp, '--print_freq', '1', '--val_freq', '2']
+    sepfilter_edge.launches = 0
+    train_sr.main(args + ['--niter', '3'])
+    assert sepfilter_edge.launches > 0
+    train_sr.main(args + ['--niter', '5', '--resume'])
+    log = MetricLog().load(f'{exp}/logs.npz')
+    assert log.last('psnr_val') is not None
+    assert max(s for s, _ in log.series['l_d_total']) == 5

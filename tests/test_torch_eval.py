@@ -310,7 +310,7 @@ def test_port_checkpoints_round_trip_and_prune(tmp_path):
     assert not mgr.save(30, {'g_params': nets[0].state_dict()})
     assert mgr.all_steps() == [20, 30] and mgr.latest_step() == 30
     assert mgr.restore()['step'] == 30
-    restored = mgr.restore(20)['g_params']
+    restored = mgr.restore(step=20)['g_params']
     for k, v in nets[1].state_dict().items():
         assert torch.equal(restored[k], v)
     rng = np.random.default_rng(5)

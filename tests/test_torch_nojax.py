@@ -28,7 +28,10 @@ def test_every_module_imports_with_jax_and_exsr_blocked():
               'zopt.histogram', 'zopt.patches', 'ops.structure_tensor',
               'utils.misc', 'apps.eval_sr', 'data.datasets',
               'train.checkpoints', 'options.config', 'models.classifiers',
-              'models.vgg', 'utils.color', 'utils.metrics'):
+              'models.vgg', 'utils.color', 'utils.metrics',
+              'losses.losses', 'losses.filter_loss',
+              'models.discriminators', 'train.controller', 'train.srragan',
+              'apps.train_sr', 'utils.logging'):
         assert f'exsr_torch.{m}' in mods
     blocked = '; '.join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
     code = (f'import sys; {blocked}; import importlib; '
