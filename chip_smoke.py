@@ -87,7 +87,25 @@ Phases, one JSON line each:
    width on 16 synthetic 256 x 256 PNGs: two ``--init_phase`` G steps, then
    a GAN-phase ``--resume`` with the flagship options (two dual D steps;
    its controller holds G back) with validation and checkpoints; launches,
-   ``logs.npz``, the resumed step, and ``eval_sr`` loading the result.
+   ``logs.npz``, the resumed step, and ``eval_sr`` loading the result;
+14. jpeg_codec: the explorable-JPEG codec at batch 16, 512 x 512, on the
+   card against the CPU (luma and chroma, every packed layout; quantised
+   coefficients equal except at float64 ties), the QF tables against
+   numpy's float32 recipe, and the JFIF reader's C++ scan against its
+   Python reader on PIL-encoded files (colour 4:2:0 at QF 10, grey, 4:4:4,
+   restart markers), each timed;
+15. jpeg_edit: ``JPEGEditSession`` at full width (nf 320, nb 10, 64 latent
+   channels) on a 512 x 512 image at QF 10: ``recompute``, an l1 edit (ms
+   a step, the loss falling, a profile), random alternatives, the imprint
+   search, a colour JPEG file, the chroma generator; bin consistency after
+   each call; the generator on the card against the CPU; and
+   ``build_model(4)``'s fp32 check against the CPU;
+16. jpeg_eval_cli: ``exsr_torch.apps.eval_jpeg.main`` at its defaults on
+   three 512 x 512 PNGs at QF 10, 30, 50 (8 Z samples, images, 3-frame
+   GIFs; ms per decoded image), one ``desired_im`` image and a checkpoint
+   round trip (bit-equal).  Phases 15 and 16 run with TF32 switched on
+   (:func:`tf32_on`): the entry points must turn it off themselves.  No
+   hand-written kernel lies on the JPEG path.
 
 Phase 3 also checks and times ``sepfilter_taps``, the CEM filter's adjoint
 kernel, at the edit shape and at the main path's batch-16 shapes; the
@@ -101,6 +119,7 @@ repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -146,6 +165,11 @@ TRAIN_REF_BATCH = 2
 # validation images, their sizes, and the steps of each phase
 CLI_TRAIN_IMAGES, CLI_TRAIN_HR, CLI_VAL_IMAGES, CLI_VAL_HR = 16, 256, 2, 128
 CLI_INIT_STEPS, CLI_GAN_STEPS = 2, 2
+# explorable JPEG: the codec's batch and image size, the l1 edit's steps and
+# the random alternatives' steps
+JPEG_BATCH, JPEG_HW, JPEG_EDIT_ITERS, JPEG_ALT_ITERS = 16, 512, 30, 10
+# the generators' width and depth: eval_jpeg's defaults
+JPEG_NF, JPEG_NB = 320, 10
 
 
 def emit(phase: str, **fields) -> None:
@@ -1316,7 +1340,7 @@ def _reference_grads(where, g, d, batch, draws):
     a device, or ``'float64'`` for the CPU in float64."""
     import copy
     from exsr_torch.ops.kernels.sepfilter import float64_reference
-    from exsr_torch.train.srragan import full_fp32
+    from exsr_torch.device import full_fp32
     f64 = where == 'float64'
     dev = 'cpu' if f64 else where
     _, _, trainer, _, _ = train_setup(dev, models=False)
@@ -1492,6 +1516,495 @@ def phase_train_cli(device, name):
     return results
 
 
+@contextlib.contextmanager
+def tf32_on():
+    """cuDNN's and CUDA matmul's TF32 switched on (PyTorch's default for
+    cuDNN; matmul's default is off, on here to cover the DCT's products)
+    within the block, the harness's flags restored after: what the JPEG
+    entry points see in a process that sets neither."""
+    import torch
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield {'cudnn.allow_tf32': True, 'cuda.matmul.allow_tf32': True}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _y_images(n, size, seed):
+    """``[n, size, size, 1]`` float32 Y images in [0, 255]: smooth content
+    plus noise, so that quantisation ties and every frequency occur."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size] / size
+    out = []
+    for _ in range(n):
+        base = sum(np.sin(2 * np.pi * (f * yy + g * xx + p))
+                   for f, g, p in rng.uniform(0.5, 12, size=(3, 3)))
+        img = 128 + 30 * base + 12 * rng.standard_normal((size, size))
+        out.append(np.clip(img, 0, 255))
+    return np.stack(out)[..., None].astype(np.float32)
+
+
+def _tie_check(card_q, cpu_q, unq64, what):
+    """Quantised coefficients, card against CPU: equal, except where the
+    float64 unquantised value lies within 1e-3 of a half-integer, where
+    they may differ by exactly 1."""
+    import numpy as np
+    diff = np.abs(card_q.astype(np.float64) - cpu_q)
+    tie = np.abs(np.abs(unq64 - np.floor(unq64)) - 0.5) < 1e-3
+    check(diff.max() <= 1 and not (diff[~tie] > 0).any(),
+          f'{what}: {int((diff[~tie] > 0).sum())} quantised coefficients '
+          f'differ away from a tie (max {diff.max()})')
+    return {'ties': int(tie.sum()), 'flipped_at_ties': int((diff > 0).sum()),
+            'coefficients': int(diff.size)}
+
+
+def phase_jpeg_codec(device, name):
+    """The DCT codec at batch 16, 512 x 512 on the card against the CPU (luma
+    and chroma, every packed layout), the QF tables against numpy's float32
+    recipe, and the JFIF reader (C++ scan against the Python reader) on
+    PIL-encoded files."""
+    import io
+    import numpy as np
+    import torch
+    from PIL import Image
+    from exsr_torch.jpeg import codec as C
+    from exsr_torch.jpeg.jfif import decode_jfif
+    from exsr_torch.native import jfif_native
+    t_phase = time.perf_counter()
+    rec = {}
+    # the QF tables: every integer QF and fractional ones, on the card,
+    # against numpy's float32 arithmetic
+    qfs = np.concatenate([np.arange(1, 101), np.random.default_rng(5)
+                          .uniform(1, 100, 200)]).astype(np.float32)
+    f32 = np.float32
+    factor = np.where(qfs < 50, f32(5000) / qfs, f32(200) - f32(2) * qfs)
+    for tag, base in (('luma', C.LUMA_Q_TABLE),
+                      ('luma16', C.pad_q_table(C.LUMA_Q_TABLE, 16)),
+                      ('chroma16', C.pad_q_table(C.CHROMA_Q_TABLE, 16))):
+        ref = np.clip(np.round(factor[:, None] * (base.reshape(-1) / 100.0)
+                               .astype(f32)[None]), 1, 255)
+        got = C.scaled_q_table(qfs, base, device).cpu().numpy()
+        check(np.array_equal(got.reshape(ref.shape), ref),
+              f'QF table {tag} differs from the float32 recipe')
+    rec['q_tables'] = {'qfs': len(qfs), 'bit_equal': True}
+
+    ys = _y_images(JPEG_BATCH, JPEG_HW, seed=21)
+    qf_rows = np.linspace(5, 95, JPEG_BATCH).round()
+    codec, chroma = C.JPEGCodec(), C.JPEGCodec(chroma_mode=True,
+                                               block_size=16)
+    y_cpu = torch.from_numpy(ys)
+    y_dev = y_cpu.to(device)
+    qf_cpu, qf_dev = torch.from_numpy(qf_rows), torch.from_numpy(qf_rows) \
+        .to(device)
+    unq64 = codec.compress(y_cpu.double(), qf_cpu, quantize=False).numpy()
+    card_q = codec.compress(y_dev, qf_dev).cpu().numpy()
+    cpu_q = codec.compress(y_cpu, qf_cpu).numpy()
+    luma = {'shape': list(ys.shape), 'qfs': qf_rows.tolist()}
+    luma['card_vs_cpu'] = _tie_check(card_q, cpu_q.astype(np.float64),
+                                     unq64, 'luma compress')
+    luma['cpu_vs_float64'] = _tie_check(cpu_q, np.round(unq64), unq64,
+                                        'luma compress (CPU)')
+    comp = torch.from_numpy(cpu_q)
+    ext_cpu = codec.extract(comp, qf_cpu)
+    ext_dev = codec.extract(comp.to(device), qf_dev).cpu()
+    luma['extract_max_abs_err'] = (ext_dev - ext_cpu).abs().max().item()
+    check(luma['extract_max_abs_err'] <= 1e-3, f'luma extract {luma}')
+    nbytes = 2 * ys.nbytes
+    luma['compress_ms'] = cuda_ms(lambda: codec.compress(y_dev, qf_dev),
+                                  [()], 20)
+    luma['extract_ms'] = cuda_ms(
+        lambda c=comp.to(device): codec.extract(c, qf_dev), [()], 20)
+    # two bs x bs products per block: 4 bs operations per sample
+    luma['bound_ms'], luma['bound_by'] = bound_ms(
+        nbytes, 4 * 8 * ys.size, FP32_FLOPS)
+    rec['luma'] = luma
+
+    rgb = np.concatenate([ys, _y_images(JPEG_BATCH, JPEG_HW, seed=22) - 128,
+                          _y_images(JPEG_BATCH, JPEG_HW, seed=23) - 128], -1)
+    img_cpu = torch.from_numpy(rgb)
+    img_dev = img_cpu.to(device)
+    chroma_rec = {'shape': list(rgb.shape)}
+    unq = chroma.compress_ycbcr(img_cpu.double(), qf_cpu, 'downsample_only')
+    for mode in (True, 'downsample_only', False):
+        a = chroma.compress_ycbcr(img_dev, qf_dev, mode).cpu()
+        b = chroma.compress_ycbcr(img_cpu, qf_cpu, mode)
+        if mode is True:
+            # Y unquantised, chroma's low frequencies rounded
+            chroma_rec['packed_y_max_abs_err'] = \
+                (a[..., :256] - b[..., :256]).abs().max().item()
+            chroma_rec['card_vs_cpu'] = _tie_check(
+                a[..., 256:].numpy(), b[..., 256:].double().numpy(),
+                unq[..., 256:].numpy(), 'chroma compress')
+        else:
+            chroma_rec[f'max_rel_err[{mode}]'] = (
+                (a - b).abs().max() / b.abs().max()).item()
+            check(chroma_rec[f'max_rel_err[{mode}]'] <= 1e-5,
+                  f'chroma compress {mode}: {chroma_rec}')
+    packed = chroma.compress_ycbcr(img_cpu, qf_cpu, True)
+    full = chroma.compress_ycbcr(img_cpu, qf_cpu, False)
+    for layout, x in (('y+low', packed), ('low', packed[..., 256:]),
+                      ('full', full[..., 256:])):
+        a = chroma.extract_ycbcr(x.to(device), qf_dev).cpu()
+        b = chroma.extract_ycbcr(x, qf_cpu)
+        err = (a - b).abs().max().item()
+        check(err <= 1e-3, f'chroma extract {layout}: {err}')
+        chroma_rec[f'extract_max_abs_err[{layout}]'] = err
+    chroma_rec['compress_ms'] = cuda_ms(
+        lambda: chroma.compress_ycbcr(img_dev, qf_dev), [()], 20)
+    rec['chroma'] = chroma_rec
+
+    # the JFIF reader: the C++ scan against the Python reader
+    rgb8 = np.concatenate(list(_y_images(3, JPEG_HW, seed=24)), -1) \
+        .round().astype(np.uint8)
+    files = {}
+    for tag, arr, kw in (
+            ('color_420_qf10', rgb8, dict(quality=10, subsampling=2)),
+            ('grey_qf75', rgb8[..., 0], dict(quality=75)),
+            ('color_444_qf60', rgb8, dict(quality=60, subsampling=0)),
+            ('restart_qf80', rgb8, dict(quality=80, restart_marker_rows=1))):
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format='JPEG', **kw)
+        files[tag] = buf.getvalue()
+    t0 = time.perf_counter()
+    jfif_native.load()     # g++ builds the C++ scan here
+    jfif = {'native_build_ms': 1e3 * (time.perf_counter() - t0)}
+    for tag, data in files.items():
+        t = {}
+        decs = {}
+        for native in (True, False):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                decs[native] = decode_jfif(data, native=native)
+                times.append(1e3 * (time.perf_counter() - t0))
+            t[native] = float(np.median(times))
+        for a, b in zip(decs[True]['components'],
+                        decs[False]['components']):
+            check(np.array_equal(a.coeffs, b.coeffs)
+                  and np.array_equal(a.q_table, b.q_table),
+                  f'JFIF {tag}: native and Python readers differ')
+        jfif[tag] = {'bytes': len(data),
+                     'components': len(decs[True]['components']),
+                     'native_ms': t[True], 'python_ms': t[False]}
+    rec['jfif'] = jfif
+    rec['phase_s'] = time.perf_counter() - t_phase
+    emit('jpeg_codec', device=name, batch=JPEG_BATCH, hw=JPEG_HW, **rec)
+    return files['color_420_qf10']
+
+
+def _bin_check(sess, what):
+    """The generator's coefficients at the current Z within half a bin of
+    the quantised input."""
+    import torch
+    with torch.no_grad():
+        c = sess.generator(sess.comp, sess._t(sess.cur_z))
+    gap = (c - sess.comp).abs().max().item()
+    check(gap <= 0.5 + 1e-6, f'{what}: bin consistency {gap}')
+    return gap
+
+
+def _coefficients_during(sess, call):
+    """The generator's output coefficients inside ``call()`` and the inputs
+    they came from, read by a forward hook (the entry point sets its own
+    precision)."""
+    seen = []
+    h = sess.generator.register_forward_hook(
+        lambda m, a, out: seen.append((out.detach().cpu(), a)))
+    try:
+        call()
+    finally:
+        h.remove()
+    return seen[-1]
+
+
+def phase_jpeg_edit(device, name, jpeg_bytes):
+    """``JPEGEditSession`` at full width (nf 320, nb 10, 64 latent
+    channels) on a seeded 512 x 512 image at QF 10, with TF32 on
+    (:func:`tf32_on`): the entry points must turn it off themselves."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from exsr_torch.apps.eval_sr import build_model
+    from exsr_torch.apps.jpeg_session import JPEGEditSession
+    from exsr_torch.device import full_fp32
+    from exsr_torch.models.dncnn import DnCNN, DnCNNConfig
+    t_phase = time.perf_counter()
+    rec = {}
+    rng = np.random.default_rng(31)
+    rgb = np.concatenate([_y_images(1, JPEG_HW, 32)[0]] * 3, -1) / 255.0
+    rgb = np.clip(rgb + 0.05 * rng.standard_normal(rgb.shape), 0, 1) \
+        .astype(np.float32)
+    zero_launches()
+    with tf32_on() as flags:
+        rec['flags'] = flags
+        sess = JPEGEditSession(nf=JPEG_NF, nb=JPEG_NB, latent_channels=64, qf=10,
+                               seed=0)
+        sess.init_random_params(0)
+        t0 = time.perf_counter()
+        sess.open_image(rgb)
+        torch.cuda.synchronize()
+        rec['open_image_ms'] = 1e3 * (time.perf_counter() - t0)
+        bins = {'open_image': _bin_check(sess, 'open_image')}
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            sess.recompute()
+            times.append(1e3 * (time.perf_counter() - t0))
+        rec['recompute_ms'] = float(np.median(times))
+
+        desired = sess.y_image / 255.0
+        # a warm-up edit (cuDNN loads its backward kernels on first use),
+        # undone
+        sess.optimize('l1', data={'desired': desired}, max_iters=2)
+        sess.undo()
+        t0 = time.perf_counter()
+        res = sess.optimize('l1', data={'desired': desired},
+                            max_iters=JPEG_EDIT_ITERS)
+        dt = time.perf_counter() - t0
+        losses = res['losses']
+        check(len(losses) == JPEG_EDIT_ITERS and losses[-1] < losses[0],
+              f'l1 edit losses {losses}')
+        bins['l1'] = _bin_check(sess, 'l1')
+        rec['l1'] = {'steps': len(losses), 'ms_per_step':
+                     1e3 * dt / len(losses), 'first_loss': float(losses[0]),
+                     'last_loss': float(losses[-1])}
+        # where an edit step's time goes: three steps, and a batch of 11
+        # (eval_jpeg's 8 Z samples and 3 GIF frames) through the generator
+        rec['l1_profile'] = profile_forward(
+            lambda _: sess.optimize('l1', data={'desired': desired},
+                                    max_iters=3), None)
+        sess.undo()
+        z11 = sess._t(np.random.default_rng(4).uniform(
+            -1, 1, (11,) + sess.cur_z.shape[1:]))
+        comp11 = sess.comp.repeat(11, 1, 1, 1)
+
+        with full_fp32(), torch.no_grad():   # warm-up at the new batch
+            sess.generator(comp11, z11)
+            rec['batch11_profile'] = profile_forward(
+                lambda _: sess.generator(comp11, z11), None)
+        sess.optimize('random_VGG', n_alternatives=4, max_iters=1)
+        sess.undo()
+        t0 = time.perf_counter()
+        res = sess.optimize('random_VGG', n_alternatives=4,
+                            max_iters=JPEG_ALT_ITERS)
+        dt = time.perf_counter() - t0
+        check(res['n_alternatives'] == 3 and all(np.isfinite(
+            res['losses'])), f'random_VGG {res["losses"]}')
+        alt = sess.alternative_out(2)
+        check(alt.shape == sess.out.shape, 'alternative shape')
+        bins['random_VGG'] = _bin_check(sess, 'random_VGG')
+        rec['random_VGG'] = {'alternatives': 4, 'steps': len(res['losses']),
+                             'ms_per_step': 1e3 * dt / len(res['losses'])}
+
+        des = np.full((JPEG_HW // 4, JPEG_HW // 4), 60.0, np.float32)
+        des[20:100, 24:104] = 220.0
+        mask = np.zeros(des.shape, np.float32)
+        mask[20:100, 24:104] = 1.0
+        t0 = time.perf_counter()
+        best, refined = sess.find_optimal_imprint_mask(
+            des, mask, [20, 16, 84, 88], top_left=(200, 200),
+            target_dims=(80, 80))
+        rec['imprint'] = {'ms': 1e3 * (time.perf_counter() - t0),
+                          'best_rect': [int(v) for v in best],
+                          'refined_sum': float(refined.sum())}
+        check(refined.sum() > 0, 'imprint mask empty')
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, 'c.jpg')
+            with open(path, 'wb') as f:
+                f.write(jpeg_bytes)
+            t0 = time.perf_counter()
+            sess.open_jpeg_file(path)
+            rec['open_jpeg_file_ms'] = 1e3 * (time.perf_counter() - t0)
+        check(sess.file_chroma is not None and 5 <= sess.qf <= 20,
+              f'open_jpeg_file: qf {sess.qf}')
+        bins['open_jpeg_file'] = _bin_check(sess, 'open_jpeg_file')
+        chroma = DnCNN(DnCNNConfig(
+            n_channels=JPEG_NF, depth=JPEG_NB, in_nc=384, out_nc=128,
+            chroma_generator=True, block_size=8, num_latent_channels=0),
+            seed=1)
+        t0 = time.perf_counter()
+        sess.attach_chroma(chroma, nf=JPEG_NF, nb=JPEG_NB)
+        rec['attach_chroma_ms'] = 1e3 * (time.perf_counter() - t0)
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            rgb_out = sess.compose_rgb()
+            times.append(1e3 * (time.perf_counter() - t0))
+        rec['compose_rgb_ms'] = {'first': times[0],
+                                 'median_warm': float(np.median(times[1:]))}
+        check(rgb_out.shape == (JPEG_HW, JPEG_HW, 3)
+              and np.isfinite(rgb_out).all(), 'compose_rgb')
+        rec['bin_consistency'] = bins
+
+        # the full-width generator on a small image: card against CPU,
+        # each through the session's recompute
+        small = rgb[:64, :64]
+        coeffs, outs, inputs = {}, {}, {}
+        for dev in (device, 'cpu'):
+            s = JPEGEditSession(nf=JPEG_NF, nb=JPEG_NB, latent_channels=64, qf=10,
+                                device=dev)
+            s.load_params(sess.params)
+            s.open_image(small)
+            s.cur_z = np.random.default_rng(3).uniform(
+                -1, 1, s.cur_z.shape).astype(np.float32)
+            coeffs[str(dev)], inputs[str(dev)] = _coefficients_during(
+                s, s.recompute)
+            outs[str(dev)] = s.out
+            comp = s.comp.cpu()
+            if dev is device:
+                card_generator = s.generator
+        a, b = coeffs[str(device)], coeffs['cpu']
+        rec['reference'] = {
+            'shape': list(b.shape),
+            'max_abs_err': (a - b).abs().max().item(),
+            'rel_to_largest_coefficient':
+                ((a - b).abs().max() / b.abs().max()).item(),
+            'rel_to_largest_correction':
+                ((a - b).abs().max() / (b - comp).abs().max()).item(),
+            'out_max_abs_err': float(np.abs(outs[str(device)]
+                                            - outs['cpu']).max()),
+            'tol': 1e-4}
+        check(rec['reference']['rel_to_largest_coefficient'] <= 1e-4
+              and rec['reference']['rel_to_largest_correction'] <= 1e-4,
+              f'JPEG generator card vs CPU {rec["reference"]}')
+        # control, recorded and not checked: the same generator call on the
+        # same inputs with TF32 reaching the convs (the entry point's
+        # full_fp32 bypassed), read by the same two measures beside the
+        # 1e-4 limit
+        with torch.no_grad():
+            t = card_generator(*inputs[str(device)]).cpu()
+        rec['tf32_control'] = {
+            'rel_to_largest_coefficient':
+                ((t - b).abs().max() / b.abs().max()).item(),
+            'rel_to_largest_correction':
+                ((t - b).abs().max() / (b - comp).abs().max()).item(),
+            'tol': 1e-4}
+
+        # the fp32 serving entry point under the same flags
+        net_out = {}
+        gen = torch.Generator().manual_seed(2)
+        lr = torch.rand(2, 16, 16, 3, generator=gen)
+        z = torch.rand(2, 64, 64, 3, generator=gen) * 2 - 1
+        for dev in ('cpu', device):
+            _, fwd = build_model(SCALE, device=dev)
+            net_out[str(dev)] = fwd(lr, z).cpu()
+        err = (net_out['cpu'] - net_out[str(device)]).abs().max().item()
+        check(err < 1e-4, f'build_model(4) fp32 card vs CPU with TF32 on: '
+              f'{err}')
+        rec['serving_fp32'] = {'shape': [2, 16, 16, 3], 'max_abs_err': err,
+                               'tol': 1e-4}
+    launches = read_launches()
+    # no hand-written kernel lies on the JPEG path; the serving check's
+    # two forwards launch the CEM's and stage 4's
+    check(launches == per_forward(1, stage4=69),
+          f'jpeg_edit launches {launches}')
+    rec['launches'] = launches
+    rec['phase_s'] = time.perf_counter() - t_phase
+    emit('jpeg_edit', device=name, nf=JPEG_NF, nb=JPEG_NB, latent_channels=64,
+         hw=JPEG_HW, qf=10, **rec)
+    return rec
+
+
+def phase_jpeg_eval_cli(device, name):
+    """``exsr_torch.apps.eval_jpeg.main`` at its defaults (nf 320, nb 10,
+    64 latent channels) on three seeded 512 x 512 PNGs, with TF32 on: the
+    Z sweep with images and GIFs, one image in the desired_im mode, and a
+    port checkpoint round trip."""
+    import json as _json
+    import math
+    import os
+    import tempfile
+    import torch
+    from exsr_torch.apps import eval_jpeg
+    from exsr_torch.models.dncnn import DnCNN, DnCNNConfig
+    from exsr_torch.train.checkpoints import CheckpointManager
+    t_phase = time.perf_counter()
+    rec = {}
+    qfs = ['10', '30', '50']
+    zero_launches()
+    with tempfile.TemporaryDirectory() as tmp, tf32_on() as flags:
+        rec['flags'] = flags
+        data, out = f'{tmp}/data', f'{tmp}/out'
+        os.makedirs(data)
+        _write_pngs(data, EVAL_IMAGES, JPEG_HW, seed=41)
+        t0 = time.perf_counter()
+        width = ['--nf', str(JPEG_NF), '--nb', str(JPEG_NB)]
+        summary = eval_jpeg.main([
+            *width, '--data_dir', data, '--qf', *qfs, '--num_z', str(EVAL_NUM_Z),
+            '--save_images', '--z_sweep_gif', str(EVAL_GIF),
+            '--out_dir', out])
+        sweep_s = time.perf_counter() - t0
+        check(all(math.isfinite(v) for v in summary.values())
+              and {'avg_psnr_jpeg', 'avg_psnr_decomp', 'avg_per_pixel_std'}
+              <= set(summary), f'eval_jpeg summary {summary}')
+        with open(f'{out}/summary.json') as f:
+            per_image = _json.load(f)['per_image']
+        check(len(per_image) == EVAL_IMAGES * len(qfs), 'records')
+        check(all(r['bin_consistency_max'] <= 0.5 for r in per_image),
+              f'bin consistency {[r["bin_consistency_max"] for r in per_image]}')
+        for i in range(EVAL_IMAGES):
+            for qf in qfs:
+                for suffix in ('_jpeg.png', '_decomp.png', '_Zsweep.gif'):
+                    check(os.path.exists(f'{out}/im{i}_qf{qf}{suffix}'),
+                          f'missing im{i}_qf{qf}{suffix}')
+        decoded = EVAL_NUM_Z + EVAL_GIF
+        rec['sweep'] = dict(
+            images=EVAL_IMAGES, hw=JPEG_HW, qfs=qfs, num_z=EVAL_NUM_Z,
+            gif_frames=EVAL_GIF, wall_s=sweep_s, summary=summary,
+            bin_consistency_max=max(r['bin_consistency_max']
+                                    for r in per_image),
+            ms_per_decoded_image=[1e3 * r['time_s'] / decoded
+                                  for r in per_image])
+
+        t0 = time.perf_counter()
+        opt = eval_jpeg.main([
+            *width, '--data_dir', data, '--qf', '10', '--latent', 'desired_im',
+            '--num_z_iters', str(EVAL_ITERS), '--max_images', '1',
+            '--out_dir', f'{tmp}/opt'])
+        with open(f'{tmp}/opt/summary.json') as f:
+            r = _json.load(f)['per_image'][0]
+        check(math.isfinite(opt['avg_final_loss']), f'desired_im {opt}')
+        rec['desired_im'] = dict(steps=EVAL_ITERS, summary=opt,
+                                 ms_per_step=1e3 * r['time_s'] / EVAL_ITERS,
+                                 wall_s=time.perf_counter() - t0)
+
+        # a port checkpoint of the default weights decodes bit-equal to
+        # them (deterministic cuDNN algorithms on both runs)
+        g = DnCNN(DnCNNConfig(n_channels=JPEG_NF, depth=JPEG_NB,
+                              num_latent_channels=64), seed=0)
+        CheckpointManager(f'{tmp}/ckpt').save(0, {'g_params': g.state_dict()})
+        runs = {}
+        torch.backends.cudnn.deterministic = True
+        try:
+            for tag, extra in (('seeded', []),
+                               ('checkpoint', ['--checkpoint',
+                                               f'{tmp}/ckpt'])):
+                eval_jpeg.main([*width, '--data_dir', data, '--qf', '10',
+                                '--num_z', '2', '--max_images', '1',
+                                '--out_dir', f'{tmp}/{tag}', *extra])
+                with open(f'{tmp}/{tag}/summary.json') as f:
+                    runs[tag] = [{k: v for k, v in r.items()
+                                  if k != 'time_s'}
+                                 for r in _json.load(f)['per_image']]
+        finally:
+            torch.backends.cudnn.deterministic = False
+        check(runs['seeded'] == runs['checkpoint'],
+              f'checkpoint round trip {runs}')
+        rec['checkpoint'] = {'bit_equal': True, 'records': runs['seeded']}
+    launches = read_launches()
+    check(not any(launches.values()), f'jpeg_eval_cli launches {launches}')
+    rec['phase_s'] = time.perf_counter() - t_phase
+    emit('jpeg_eval_cli', device=name, **rec)
+    return rec
+
+
 def train_rows(records, kern, taps) -> dict:
     """The training path's fields of each CEM kernel's row of the kernels
     line: launches per step kind and per iteration (D then G step), and
@@ -1587,6 +2100,9 @@ def main() -> int:
                                                                  name)
     phase_train_reference(device, name, d_state)
     phase_train_cli(device, name)
+    jpeg_bytes = phase_jpeg_codec(device, name)
+    phase_jpeg_edit(device, name, jpeg_bytes)
+    phase_jpeg_eval_cli(device, name)
     train = train_rows(train_records, train_kern, train_taps)
 
     # launches: the total over the forwards of the path that runs the

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from exsr_torch.cem.cem import CEM, CEMConf, cem_wrap
-from exsr_torch.device import resolve_device
+from exsr_torch.device import full_fp32, resolve_device
 from exsr_torch.models.classifiers import MSRResNet, SRResNet
 from exsr_torch.models.convert import from_exsr_flat_params, \
     from_exsr_params
@@ -80,7 +80,9 @@ def build_model(scale: int, nb: int = 23, latent_channels: int = 3,
     by the CEM's invalidity margins (``pre_pad``), for the downscaling
     kernel ``upscale_kernel`` (``CEM.create``'s: None for bicubic, an
     estimated ndarray, or ``'blurry_cubic_<sigma>'``); without it ``cem``
-    is None and the bare generator's output is clipped.
+    is None and the bare generator's output is clipped.  The forward runs
+    with TF32 off (:func:`exsr_torch.device.full_fp32`): fp32 convolutions
+    in full fp32, whatever the process's flags.
 
     Weights are ``params`` (the port's module or a state dict, e.g. from
     :mod:`exsr_torch.models.convert`), else ``checkpoint``
@@ -137,7 +139,8 @@ def build_model(scale: int, nb: int = 23, latent_channels: int = 3,
         lr = torch.as_tensor(lr, dtype=torch.float32, device=device)
         if z_hr is not None:
             z_hr = torch.as_tensor(z_hr, dtype=torch.float32, device=device)
-        return run(lr, z_hr).clamp(0.0, 1.0)
+        with full_fp32():
+            return run(lr, z_hr).clamp(0.0, 1.0)
 
     return cem, forward
 

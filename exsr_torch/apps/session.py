@@ -23,7 +23,9 @@ The state the caller reads (``lr_image``, ``cur_z``, ``sr``) is numpy, as
 ``exsr``'s is; the forward runs on ``device`` (CUDA unless the caller asks
 for the CPU).  Random alternatives and ``random_*`` objectives draw from a
 ``torch.Generator`` seeded by ``seed`` (``exsr`` seeds them from the
-clock).  ``estimate_kernel`` (KernelGAN) is not ported yet.
+clock).  Forwards and edits run with TF32 off
+(:func:`exsr_torch.device.full_fp32`), as ``exsr`` computes in fp32.
+``estimate_kernel`` (KernelGAN) is not ported yet.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 
 from exsr_torch.cem.cem import CEM, CEMConf, cem_wrap, consistent_downsample
-from exsr_torch.device import resolve_device
+from exsr_torch.device import full_fp32, resolve_device
 from exsr_torch.models.rrdb import RRDBNet
 from exsr_torch.models.rrdb_fast import pack_grouped_params, \
     rrdbnet_apply_fast
@@ -146,6 +148,7 @@ class EditSession:
         # (LR crop, desired image, mask) comes in through obj_args
         self._zopt_cache = {}
 
+    @full_fp32()
     def _fwd(self, p, lr, z) -> torch.Tensor:
         """The clipped CEM-wrapped forward of a whole image (pre-padded),
         without gradients."""
@@ -218,6 +221,7 @@ class EditSession:
         self._esrgan = net.to(self._device).requires_grad_(False)
         self._esrgan_cache = None
 
+    @full_fp32()
     def esrgan_sr(self) -> np.ndarray:
         """The comparison SR of the attached ESRGAN model, cached per LR
         image."""
@@ -386,6 +390,7 @@ class EditSession:
         return y0, y1, x0, x1
 
     # ------------------------------------------------------------- optimize
+    @full_fp32()
     def optimize(self, objective: str, data: dict | None = None,
                  max_iters: int | None = None,
                  time_budget_s: float | None = None,

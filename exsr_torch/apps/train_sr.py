@@ -98,14 +98,13 @@ def main(argv=None):
     from exsr_torch.apps.eval_sr import PLAIN_ARCHS, load_generator_params
     from exsr_torch.cem.cem import CEM, CEMConf, cem_wrap
     from exsr_torch.data.datasets import DataLoader, LRHRDataset
-    from exsr_torch.device import resolve_device
+    from exsr_torch.device import full_fp32, resolve_device
     from exsr_torch.models.discriminators import (DiscriminatorVGG128,
                                                   PatchGANDiscriminator)
     from exsr_torch.models.rrdb import RRDBNet
     from exsr_torch.train.checkpoints import CheckpointManager
     from exsr_torch.train.controller import GANController
-    from exsr_torch.train.srragan import (SRRaGANTrainer, TrainConfig,
-                                          full_fp32)
+    from exsr_torch.train.srragan import SRRaGANTrainer, TrainConfig
     from exsr_torch.utils.color import tensor2img
     from exsr_torch.utils.logging import MetricLog, TensorboardWriter
     from exsr_torch.utils.metrics import calculate_psnr, crop_border

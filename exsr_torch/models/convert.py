@@ -1,7 +1,9 @@
 """Weight bridges from ``exsr``'s parameters to the port's modules: the
 RRDBNet (:func:`from_exsr_params`), ``MSRResNet``, ``SRResNet`` and
-``VGG19Features`` (:func:`from_exsr_flat_params`), and the two
-discriminators of the SR trainer (:func:`d_from_exsr_vars`).
+``VGG19Features`` (:func:`from_exsr_flat_params`), the two
+discriminators of the SR trainer (:func:`d_from_exsr_vars`), and the
+explorable-JPEG DnCNN generator and discriminator
+(:func:`dncnn_from_exsr_vars`, :func:`dncnn_d_from_exsr_vars`).
 
 The caller hands over ``exsr``'s params as a nested dict of numpy arrays
 (``jax.tree.map(np.asarray, params)``, or
@@ -97,4 +99,45 @@ def d_from_exsr_vars(d_vars) -> dict:
                 out.update({f'{name}.bn.{k}': v for k, v in bn.items()})
         else:
             out.update({f'{name}.{k}': v for k, v in _conv(entry).items()})
+    return out
+
+
+def _dncnn_common(variables) -> dict:
+    """``conv{i}`` (with or without a bias) and ``BatchNorm_{j}`` (with its
+    running statistics) of a DnCNN's variables."""
+    p = variables['params']
+    stats = variables.get('batch_stats') or {}
+    out = {}
+    for name, entry in p.items():
+        if name.startswith('conv'):
+            out[f'{name}.weight'] = torch.from_numpy(np.array(
+                np.asarray(entry['kernel']).transpose(3, 2, 0, 1)))
+            if 'bias' in entry:
+                out[f'{name}.bias'] = torch.from_numpy(np.array(
+                    entry['bias']))
+        elif name.startswith('BatchNorm_'):
+            j = int(name[len('BatchNorm_'):])
+            bn = _batch_norm(entry, stats.get(name))
+            out.update({f'bns.{j}.{k}': v for k, v in bn.items()})
+    return out
+
+
+def dncnn_from_exsr_vars(variables) -> dict:
+    """``exsr``'s DnCNN generator variables (``{'params'[,
+    'batch_stats']}``, numpy trees) -> the state dict of
+    :class:`exsr_torch.models.dncnn.DnCNN`."""
+    return _dncnn_common(variables)
+
+
+def dncnn_d_from_exsr_vars(variables) -> dict:
+    """``exsr``'s ``DnCNNDiscriminator`` variables (``params``, and
+    ``batch_stats`` and ``spectral`` where it has them) -> the state dict
+    of :class:`exsr_torch.models.dncnn.DnCNNDiscriminator`: the FC head's
+    ``Dense_0`` and spectral norm's ``u`` vectors besides the convs."""
+    out = _dncnn_common(variables)
+    if 'Dense_0' in variables['params']:
+        out.update({f'fc.{k}': v for k, v in
+                    _dense(variables['params']['Dense_0']).items()})
+    for name, entry in (variables.get('spectral') or {}).items():
+        out[f'{name}.u'] = torch.from_numpy(np.array(entry['u']))
     return out

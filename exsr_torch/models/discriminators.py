@@ -61,27 +61,36 @@ def lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
 
 
 class BatchNorm(nn.Module):
-    """Batch norm over NCHW that normalizes by the batch's statistics and
-    updates the running ones flax's way only when asked."""
+    """Batch norm over NCHW that normalizes by the batch's statistics (or,
+    without ``batch_stats``, by the running ones) and updates the running
+    ones flax's way only when asked: they keep ``momentum`` of their value
+    and take the rest from the batch's mean and biased variance."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, momentum: float = BN_MOMENTUM,
+                 eps: float = BN_EPS):
         super().__init__()
+        self.momentum, self.eps = momentum, eps
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('running_mean', torch.zeros(features))
         self.register_buffer('running_var', torch.ones(features))
 
-    def forward(self, x: torch.Tensor, update_stats: bool = False):
+    def forward(self, x: torch.Tensor, update_stats: bool = False,
+                batch_stats: bool = True):
         if update_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=(0, 2, 3),
                                            correction=0)
-                self.running_mean.mul_(BN_MOMENTUM).add_(
-                    (1 - BN_MOMENTUM) * mean)
-                self.running_var.mul_(BN_MOMENTUM).add_(
-                    (1 - BN_MOMENTUM) * var)
+                self.running_mean.mul_(self.momentum).add_(
+                    (1 - self.momentum) * mean)
+                self.running_var.mul_(self.momentum).add_(
+                    (1 - self.momentum) * var)
+        if not batch_stats:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, training=False,
+                                eps=self.eps)
         return F.batch_norm(x, None, None, self.weight, self.bias,
-                            training=True, momentum=0.0, eps=BN_EPS)
+                            training=True, momentum=0.0, eps=self.eps)
 
 
 class ConvBlock(nn.Module):

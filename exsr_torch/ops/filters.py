@@ -8,15 +8,16 @@ layout ``[C, 1, kh, kw]`` (``exsr`` uses HWIO ``[kh, kw, 1, C]``).
 The CEM chain stays fp32: ``exsr`` runs it at ``precision=HIGHEST``, and
 cuDNN would otherwise run fp32 convolutions in TF32 on the GPU, which
 breaks the ~1e-6 consistency guarantee.  :func:`depthwise_correlate`
-turns TF32 off around its convolution.
+turns TF32 off around its convolution
+(:func:`exsr_torch.device.full_fp32`).
 """
 from __future__ import annotations
-
-import contextlib
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from exsr_torch.device import full_fp32
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -27,18 +28,6 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
     """NCHW tensor -> NHWC view (contiguous when ``x`` is channels_last)."""
     return x.permute(0, 2, 3, 1)
-
-
-@contextlib.contextmanager
-def no_tf32():
-    """cuDNN's fp32 convolutions in full fp32 (TF32 off) within the
-    block."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
 
 
 def depthwise_weights(kernel2d, channels: int, dtype=torch.float32,
@@ -94,7 +83,7 @@ def depthwise_correlate(x: torch.Tensor, weights: torch.Tensor
                         ) -> torch.Tensor:
     """VALID depthwise cross-correlation of NHWC ``x`` with ``[C,1,kh,kw]``
     weights, in full fp32 (TF32 off)."""
-    with no_tf32():
+    with full_fp32():
         y = F.conv2d(to_nchw(x), weights.to(x.dtype), groups=x.shape[-1])
     return to_nhwc(y)
 

@@ -1,4 +1,5 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels (and, through
+:func:`compile_sources`, its host C++ in :mod:`exsr_torch.native`).
 
 Each ``exsr_torch/csrc/<name>.cu`` has a plain C interface.  At first use
 it is compiled with ``nvcc`` for Hopper (``sm_90a``) into
@@ -44,41 +45,73 @@ def nvcc_path() -> str:
     raise RuntimeError('nvcc not found: set CUDA_HOME or put nvcc on PATH')
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f'{name}.cu').read_bytes()
-    digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f'{name}-{digest[:16]}.so'
+class BuildError(RuntimeError):
+    """A source could not be compiled, or its library loaded."""
 
 
-def build(names=SOURCES) -> dict:
-    """Compile every missing library of ``names``, one ``nvcc`` each, all
-    started together.  Returns ``{name: {'seconds', 'ptxas'}}`` for the
-    libraries built by this call (ptxas's register and spill report)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
+def source_library(src: Path, build_dir: Path, flags) -> Path:
+    """Where ``src`` built with ``flags`` lives in ``build_dir``: the name
+    carries a hash of the source and the flags."""
+    digest = hashlib.sha256(src.read_bytes()
+                            + ' '.join(flags).encode()).hexdigest()
+    return build_dir / f'{src.stem}-{digest[:16]}.so'
+
+
+def compile_sources(sources: dict, build_dir: Path, compiler: str,
+                    flags) -> dict:
+    """Compile the missing library of each ``{name: source path}`` with
+    ``compiler`` and ``flags``, one process each, all started together.
+    Returns ``{name: {'seconds', 'log'}}`` for the libraries built by this
+    call (the compiler's output).  Each library is written beside its place
+    and renamed into it, so processes that build at the same time never
+    load half a file."""
+    build_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name in names:
-        target = library_path(name)
+    for name, src in sources.items():
+        target = source_library(src, build_dir, flags)
         if target.exists():
             continue
-        fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+        fd, tmp = tempfile.mkstemp(suffix='.so', dir=build_dir)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, '-o', tmp, str(CSRC / f'{name}.cu')]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
+        try:
+            proc = subprocess.Popen(
+                [compiler, *flags, '-o', tmp, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        except FileNotFoundError as e:
+            os.unlink(tmp)
+            for other, other_tmp, _, _ in jobs.values():
+                other.kill()
+                other.wait()
+                os.unlink(other_tmp)
+            raise BuildError(f'no {compiler} to build {src.name}') from e
         jobs[name] = (proc, tmp, target, time.perf_counter())
     report, failed = {}, []
     for name, (proc, tmp, target, t0) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            failed.append(f'{name}.cu (nvcc exit {proc.returncode}):\n{log}')
+            failed.append(f'{sources[name].name} ({compiler} exit '
+                          f'{proc.returncode}):\n{log}')
             continue
-        os.replace(tmp, target)  # atomic: concurrent builds race safely
-        report[name] = {'seconds': time.perf_counter() - t0, 'ptxas': log}
+        os.replace(tmp, target)
+        report[name] = {'seconds': time.perf_counter() - t0, 'log': log}
     if failed:
-        raise RuntimeError('kernel build failed: ' + '\n'.join(failed))
+        raise BuildError('build failed: ' + '\n'.join(failed))
     return report
+
+
+def library_path(name: str) -> Path:
+    return source_library(CSRC / f'{name}.cu', BUILD_DIR, NVCC_FLAGS)
+
+
+def build(names=SOURCES) -> dict:
+    """Compile every missing library of ``names``, one ``nvcc`` each, all
+    started together.  Returns ``{name: {'seconds', 'ptxas'}}`` for the
+    libraries built by this call (ptxas's register and spill report)."""
+    report = compile_sources({n: CSRC / f'{n}.cu' for n in names},
+                             BUILD_DIR, nvcc_path(), NVCC_FLAGS)
+    return {n: {'seconds': r['seconds'], 'ptxas': r['log']}
+            for n, r in report.items()}
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:

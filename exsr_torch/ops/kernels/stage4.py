@@ -41,7 +41,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from exsr_torch.ops.filters import no_tf32, to_nchw, to_nhwc
+from exsr_torch.device import full_fp32
+from exsr_torch.ops.filters import to_nchw, to_nhwc
 from exsr_torch.ops.kernels import build
 
 
@@ -140,7 +141,7 @@ class _Stage4(torch.autograd.Function):
         s = g * torch.tensor(0.2, dtype=g.dtype).item()
         w = w4.to(g.dtype).permute(3, 2, 0, 1)  # HWIO -> OIHW
         grads = [None] * 8
-        with no_tf32():
+        with full_fp32():
             if need[0]:
                 b, h, wd, gc = ctx.c3_shape
                 grads[0] = to_nhwc(torch.nn.grad.conv2d_input(

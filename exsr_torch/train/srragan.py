@@ -31,14 +31,13 @@ TF32 is off inside them, as ``exsr`` trains in fp32.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable
 
 import numpy as np
 import torch
 
-from exsr_torch.device import resolve_device
+from exsr_torch.device import full_fp32, resolve_device
 from exsr_torch.losses import losses as L
 from exsr_torch.losses.filter_loss import (FilterLossConfig, RatioStats,
                                            filter_loss, num_latent_channels)
@@ -108,21 +107,6 @@ def multistep_lr(base: float, steps, gamma: float, step: int) -> float:
         if step >= s:
             lr = lr * np.float32(gamma)
     return float(lr)
-
-
-@contextlib.contextmanager
-def full_fp32():
-    """cuDNN convolutions and matmuls in full fp32 (TF32 off) within the
-    block."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 @dataclasses.dataclass

@@ -1,12 +1,14 @@
 """Host helpers of the edit session and the CLIs: the periodicity tool's
-autocorrelation and line sampling, the scribble tool's masks, Z maps made
-from images or stored as PNG, scheduled loss weights, the training loop's
-one-transfer metric fetch, and its cooperative SIGINT stop.
+autocorrelation and line sampling, the scribble tool's masks, the JPEG
+imprint tool's resizes, Z maps made from images or stored as PNG,
+scheduled loss weights, the training loop's one-transfer metric fetch, and
+its cooperative SIGINT stop.
 
 The port's own copies of ``varying_weight``, ``im_to_z_input``,
 ``z_map_to_png``, ``png_to_z_map`` (``exsr/utils/misc.py:31-82``),
 ``overlap_normalized_autocorr``, ``first_autocorr_peak``,
-``bilinear_sample_line``, ``scribble_mask_components``
+``bilinear_sample_line``, ``resize_scribble_image``,
+``resize_categorical_image``, ``scribble_mask_components``
 (``exsr/utils/misc.py:98-187``), and of ``fetch_scalars``,
 ``stage_scalars``, ``read_scalars`` and ``install_sigint_stop``
 (``exsr/utils/misc.py:189-283``) over torch tensors.
@@ -119,6 +121,75 @@ def scribble_mask_components(scribble_mask: np.ndarray, mask: np.ndarray,
     tv_masks = [(mask * (scribble_mask == i)).astype(np.float32)
                 for i in tv_ids]
     return mult, l1_mask, tv_masks
+
+
+def _linear_resize_weights(in_size: int, out_size: int,
+                           antialias: bool) -> np.ndarray:
+    """``[in_size, out_size]`` float32 weights of a triangle-kernel resize,
+    in ``jax.image.resize``'s arithmetic: sample ``o`` sits at
+    ``(o + 0.5) / scale - 0.5``; with ``antialias`` a downscale widens the
+    kernel by ``1 / scale``; each column is normalised to sum 1, and a
+    sample outside the input gets no weight."""
+    f32 = np.float32
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = f32(max(inv_scale, 1.0)) if antialias else f32(1.0)
+    sample = (np.arange(out_size, dtype=f32) + f32(0.5)) * f32(inv_scale) \
+        - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None]) \
+        / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def _linear_resize(image: np.ndarray, dsize, antialias: bool) -> np.ndarray:
+    """``jax.image.resize(image, dsize + image.shape[2:], 'linear',
+    antialias=antialias)`` in numpy float32: a resized axis is contracted
+    with its weights, an axis of unchanged size is left alone."""
+    out = np.asarray(image, np.float32)
+    for axis, n in enumerate(tuple(dsize)):
+        m = out.shape[axis]
+        if m == n:
+            continue
+        w = _linear_resize_weights(m, n, antialias)
+        out = np.moveaxis(np.tensordot(out, w, axes=([axis], [0])), -1, axis)
+    return out.astype(np.float32)
+
+
+def resize_scribble_image(image: np.ndarray, dsize) -> np.ndarray:
+    """Continuous-valued resize to ``dsize = (h, w)``: antialiased linear
+    resampling, as ``exsr``'s ``jax.image.resize(..., 'linear',
+    antialias=True)`` (a triangle kernel widened by the scale when
+    downsizing), not ``F.interpolate``'s bilinear antialias."""
+    if tuple(image.shape[:2]) == tuple(dsize):
+        return image
+    return _linear_resize(image, dsize, antialias=True)
+
+
+def resize_categorical_image(image: np.ndarray, dsize,
+                             inclusive: bool = False) -> np.ndarray:
+    """Categorical (mask or label) resize: each category's indicator is
+    resized linearly without antialiasing and thresholded (> 0.5, or
+    > 0 with ``inclusive``, which marks every partly touched pixel and
+    skips category 0); lower categories overrule higher ones where they
+    overlap."""
+    if not np.issubdtype(image.dtype, np.integer):
+        raise TypeError(f'categorical resize of a {image.dtype} image')
+    if tuple(image.shape[:2]) == tuple(dsize):
+        return image
+    out = np.zeros(tuple(dsize), image.dtype)
+    cats = sorted(set(image.reshape(-1).tolist()))[::-1]
+    if inclusive:
+        cats = [c for c in cats if c != 0]
+    for c in cats:
+        r = _linear_resize((image == c).astype(np.float32), dsize,
+                           antialias=False)
+        m = r > (0.0 if inclusive else 0.5)
+        out = np.where(m, np.asarray(c, image.dtype), out)
+    return out
 
 
 def _scalar_keys(metrics) -> list:

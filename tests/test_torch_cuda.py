@@ -743,3 +743,191 @@ def test_train_cli_on_cuda(cuda, tmp_path):
     log = MetricLog().load(f'{exp}/logs.npz')
     assert log.last('psnr_val') is not None
     assert max(s for s, _ in log.series['l_d_total']) == 5
+
+
+# ------------------------------------------------------- explorable JPEG
+
+@pytest.fixture
+def default_tf32(cuda):
+    """PyTorch's default TF32 flags (cuDNN on, matmul off), the fixture's
+    restored after: an entry point must turn TF32 off itself."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def test_build_model_fp32_under_default_tf32_flags(default_tf32):
+    """The fp32 serving forward at full width with PyTorch's default flags:
+    within 1e-4 of the CPU, as phase 4 checks it with TF32 off."""
+    gen = torch.Generator().manual_seed(2)
+    lr = torch.rand(2, 16, 16, 3, generator=gen)
+    z = torch.rand(2, 64, 64, 3, generator=gen) * 2 - 1
+    outs = {}
+    for dev in ('cpu', default_tf32):
+        _, fwd = build_model(4, device=dev)
+        outs[str(dev)] = fwd(lr, z).cpu()
+    assert torch.backends.cudnn.allow_tf32
+    assert (outs['cpu'] - outs[str(default_tf32)]).abs().max().item() < 1e-4
+
+
+def _y_images(n, hw, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:hw, :hw] / hw
+    out = [np.clip(128 + 30 * sum(np.sin(2 * np.pi * (f * yy + g * xx + p))
+                                  for f, g, p in rng.uniform(0.5, 8, (3, 3)))
+                   + 20 * rng.standard_normal((hw, hw)), 0, 255)
+           for _ in range(n)]
+    return np.stack(out)[..., None].astype(np.float32)
+
+
+def _quantised_agree(card, cpu, unq64):
+    diff = np.abs(card.astype(np.float64) - cpu)
+    tie = np.abs(np.abs(unq64 - np.floor(unq64)) - 0.5) < 1e-3
+    assert diff.max() <= 1 and not (diff[~tie] > 0).any()
+
+
+def test_jpeg_codec_card_vs_cpu(cuda):
+    """Luma and chroma compress/extract on the card against the CPU: the
+    quantised coefficients equal but at ties (float64 decides where), the
+    QF tables bit-equal."""
+    from exsr_torch.jpeg import codec as C
+    ys = _y_images(4, 128, 0)
+    qf = torch.tensor([5.0, 20.0, 50.0, 97.0])
+    luma = C.JPEGCodec()
+    unq = luma.compress(torch.from_numpy(ys).double(), qf,
+                        quantize=False).numpy()
+    card = luma.compress(torch.from_numpy(ys).to(cuda), qf.to(cuda)).cpu()
+    cpu = luma.compress(torch.from_numpy(ys), qf)
+    _quantised_agree(card.numpy(), cpu.double().numpy(), unq)
+    torch.testing.assert_close(
+        luma.extract(cpu.to(cuda), qf.to(cuda)).cpu(),
+        luma.extract(cpu, qf), atol=1e-3, rtol=0)
+    tables = C.scaled_q_table(np.arange(1, 101, dtype=np.float32),
+                              C.LUMA_Q_TABLE, cuda).cpu()
+    assert torch.equal(tables, C.scaled_q_table(
+        np.arange(1, 101, dtype=np.float32), C.LUMA_Q_TABLE))
+    chroma = C.JPEGCodec(chroma_mode=True, block_size=16)
+    img = torch.from_numpy(np.concatenate(
+        [ys[:2], ys[2:] - 128, ys[:2][:, ::-1] - 100], -1).copy())
+    q2 = qf[:2]
+    for mode in (True, False):
+        a = chroma.compress_ycbcr(img.to(cuda), q2.to(cuda), mode).cpu()
+        b = chroma.compress_ycbcr(img, q2, mode)
+        # extract's input: Y with the chroma's low frequencies, or the two
+        # full chroma channels
+        packed = b if mode is True else b[..., 256:]
+        if mode is True:
+            u = chroma.compress_ycbcr(img.double(), q2, 'downsample_only')
+            _quantised_agree(a[..., 256:].numpy(),
+                             b[..., 256:].double().numpy(),
+                             u[..., 256:].numpy())
+            a, b = a[..., :256], b[..., :256]
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-5
+        torch.testing.assert_close(
+            chroma.extract_ycbcr(packed.to(cuda), q2.to(cuda)).cpu(),
+            chroma.extract_ycbcr(packed, q2), atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize('case', ['luma', 'chroma', 'discriminator'])
+def test_dncnn_card_vs_cpu(cuda, case):
+    """The generators (latent at every layer, batch norm) and the
+    discriminator (spectral norm, batch norm, FC head, resized Z), fp32,
+    on the card against the CPU: the generators within 1e-4 of their
+    largest correction (the output less the quantised input it carries,
+    bounded by 0.5), the discriminator within 1e-4 of its largest
+    output."""
+    from exsr_torch.models.dncnn import DnCNN, DnCNNConfig, \
+        DnCNNDiscriminator
+    gen = torch.Generator().manual_seed(7)
+    if case == 'discriminator':
+        net = DnCNNDiscriminator(n_channels=64, depth=6,
+                                 expected_input_size=16, norm='batch',
+                                 spectral_norm=True,
+                                 latent_input='all_layers',
+                                 num_latent_channels=3, seed=2)
+        x = torch.randn(3, 16, 16, 64, generator=gen)
+        z = torch.rand(3, 16, 16, 3, generator=gen) * 2 - 1
+    else:
+        chroma = case == 'chroma'
+        net = DnCNN(DnCNNConfig(
+            n_channels=64, depth=6, in_nc=384 if chroma else 64,
+            out_nc=128 if chroma else 64, chroma_generator=chroma,
+            num_latent_channels=0 if chroma else 8), seed=1)
+        x = torch.round(torch.randn(3, 12, 12, 384 if chroma else 64,
+                                    generator=gen) * 4)
+        z = None if chroma else torch.rand(3, 12, 12, 8, generator=gen)
+    outs = {}
+    for dev in ('cpu', cuda):
+        net.to(dev)
+        with torch.no_grad():
+            outs[str(dev)] = net(x.to(dev), None if z is None
+                                 else z.to(dev)).cpu()
+    ref = outs['cpu']
+    if case == 'discriminator':
+        scale = ref.abs().max()
+    elif case == 'luma':
+        scale = (ref - x).abs().max()
+    else:
+        # the chroma generator carries the input's 8 x 8 low frequencies
+        # in the first 8 x 8 quadrant of each block
+        q = net.cfg.block_size // 8
+        base = torch.zeros(3, 12, 12, 2, q, 8, q, 8)
+        base[..., 0, :, 0, :] = x[..., 256:].reshape(3, 12, 12, 2, 8, 8)
+        scale = (ref - base.reshape(ref.shape)).abs().max()
+    assert ((outs[str(cuda)] - ref).abs().max() / scale) <= 1e-4
+
+
+def test_jpeg_session_card_vs_cpu(default_tf32):
+    """JPEGEditSession on the card against the CPU on the same weights,
+    with PyTorch's default TF32 flags: the decode, an l1 edit and the
+    chroma path."""
+    from exsr_torch.apps.jpeg_session import JPEGEditSession
+    from exsr_torch.models.dncnn import DnCNN, DnCNNConfig
+    rng = np.random.default_rng(3)
+    img = rng.uniform(size=(64, 64, 3)).astype(np.float32)
+    chroma = DnCNN(DnCNNConfig(n_channels=32, depth=4, in_nc=384,
+                               out_nc=128, chroma_generator=True,
+                               num_latent_channels=0), seed=5)
+    res = {}
+    for dev in ('cpu', default_tf32):
+        s = JPEGEditSession(nf=64, nb=6, latent_channels=64, qf=15,
+                            device=dev)
+        s.init_random_params(4)
+        s.open_image(img)
+        out0 = s.out.copy()
+        r = s.optimize('l1', data={'desired': s.y_image / 255.0 * 0.9},
+                       max_iters=5)
+        s.attach_chroma(chroma, nf=32, nb=4)
+        res[str(dev)] = (out0, r['losses'], s.out, s.compose_rgb())
+    for a, b in zip(res['cpu'], res[str(default_tf32)]):
+        np.testing.assert_allclose(b, a, atol=1e-4, rtol=1e-4)
+    assert torch.backends.cudnn.allow_tf32
+
+
+def test_native_jfif_scan_matches_python_reader(cuda):
+    """The C++ scan, built with this machine's g++, against the Python
+    reader on colour 4:2:0 / 4:4:4, grey and restart-marker files."""
+    import io
+    from PIL import Image
+    from exsr_torch.jpeg.jfif import decode_jfif
+    from exsr_torch.native import jfif_native
+    assert jfif_native.available()
+    rgb = np.concatenate(list(_y_images(3, 96, 5)), -1).astype(np.uint8)
+    files = []
+    for arr, kw in ((rgb, dict(quality=10, subsampling=2)),
+                    (rgb, dict(quality=60, subsampling=0)),
+                    (rgb[..., 0], dict(quality=75)),
+                    (rgb, dict(quality=80, restart_marker_rows=1))):
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format='JPEG', **kw)
+        files.append(buf.getvalue())
+    for data in files:
+        a, b = decode_jfif(data, native=True), decode_jfif(data,
+                                                           native=False)
+        for x, y in zip(a['components'], b['components']):
+            np.testing.assert_array_equal(x.coeffs, y.coeffs)
+            np.testing.assert_array_equal(x.q_table, y.q_table)

@@ -31,7 +31,10 @@ def test_every_module_imports_with_jax_and_exsr_blocked():
               'models.vgg', 'utils.color', 'utils.metrics',
               'losses.losses', 'losses.filter_loss',
               'models.discriminators', 'train.controller', 'train.srragan',
-              'apps.train_sr', 'utils.logging'):
+              'apps.train_sr', 'utils.logging', 'ops.dct', 'jpeg.codec',
+              'jpeg.jfif', 'native', 'native.jfif_native', 'models.dncnn',
+              'train.decomp', 'apps.jpeg_session', 'apps.eval_jpeg',
+              'device'):
         assert f'exsr_torch.{m}' in mods
     blocked = '; '.join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
     code = (f'import sys; {blocked}; import importlib; '
