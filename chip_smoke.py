@@ -105,7 +105,32 @@ Phases, one JSON line each:
    GIFs; ms per decoded image), one ``desired_im`` image and a checkpoint
    round trip (bit-equal).  Phases 15 and 16 run with TF32 switched on
    (:func:`tf32_on`): the entry points must turn it off themselves.  No
-   hand-written kernel lies on the JPEG path.
+   hand-written kernel lies on the JPEG path;
+17. train_jpeg_step: the explorable-JPEG Y trainer
+   (``exsr_torch.train.decomp``) at ``train_jpeg``'s defaults (DnCNN nf
+   320, nb 10, 64 latent channels; critic nf 320, nb 10 on the 32 x 32
+   grid; batch 16, patch 256, wgan-gp, ten inner MAP iterations, QF in
+   5-50) on seeded weights and images: each step kind (non-dual and dual D
+   and G) a warm-up and two timed calls, host ms, the MAP loop's share,
+   device launches and busy share per step, peak memory, what each step
+   moves (the generator's running statistics only in the G step), a
+   profile of one dual G step;
+18. train_jpeg_reference: a non-dual D step and a dual G step (two inner
+   iterations) at full width, batch 2, on the card against the CPU on the
+   same draws (phase 12's rule), the generator's running statistics within
+   1e-5; one ``ChromaDecompTrainer`` step at the chroma CLI's width (nf
+   160 under the 320-wide Y generator, batch 16), timed;
+19. train_jpeg_cli: ``exsr_torch.apps.train_jpeg.main`` at its defaults on
+   16 synthetic 256 x 256 PNGs (two steps, a validation, checkpoints, a
+   resume), ``--chroma --y_ckpt`` on its checkpoint, and ``eval_jpeg
+   --checkpoint`` on it;
+20. kernelgan: ``KernelGAN.estimate`` at its default configuration (3000
+   iterations) on the in-repo 276 x 276 face degraded by a known
+   anisotropic Gaussian x2 kernel: seconds, launches per iteration, busy
+   share, kernel quality (reported, not gated); its first iterations
+   against the CPU; ``EditSession.estimate_kernel`` at full width against
+   the same session on the CPU; and ``eval_sr --kernel estimated`` on a
+   128 x 128 LR image.  Phases 17-20 run with TF32 switched on.
 
 Phase 3 also checks and times ``sepfilter_taps``, the CEM filter's adjoint
 kernel, at the edit shape and at the main path's batch-16 shapes; the
@@ -170,6 +195,15 @@ CLI_INIT_STEPS, CLI_GAN_STEPS = 2, 2
 JPEG_BATCH, JPEG_HW, JPEG_EDIT_ITERS, JPEG_ALT_ITERS = 16, 512, 30, 10
 # the generators' width and depth: eval_jpeg's defaults
 JPEG_NF, JPEG_NB = 320, 10
+# JPEG training: train_jpeg's batch; the card-against-CPU check's batch and
+# inner MAP iterations; the chroma CLI's width under the 320-wide Y model
+JPEG_TRAIN_BATCH, JPEG_REF_BATCH, JPEG_REF_ITERS, CHROMA_NF = 16, 2, 2, 160
+# KernelGAN: the in-repo image it estimates on, the iterations held to the
+# CPU (and profiled), eval_sr's LR image size and KernelGAN iterations
+KG_IMAGE = 'artifacts/convergence_r3/face_SR.png'
+# (eval_sr's estimation at 300 iterations: at 3000 it took 82 s on an H100
+# 80GB HBM3 at 700 W, which put the whole script past 600 s)
+KG_CHECK_ITERS, KG_EVAL_LR, KG_EVAL_ITERS = 20, 128, 300
 
 
 def emit(phase: str, **fields) -> None:
@@ -2005,6 +2039,613 @@ def phase_jpeg_eval_cli(device, name):
     return rec
 
 
+def _moved(tensors, before) -> bool:
+    import torch
+    return any(not torch.equal(a, b) for a, b in zip(tensors, before))
+
+
+def _snap(tensors) -> list:
+    return [t.detach().clone() for t in tensors]
+
+
+def _running(module) -> list:
+    return [b for n, b in module.named_buffers() if 'running' in n]
+
+
+def jpeg_train_setup(batch, seed, optimal_z_iters=10):
+    """The Y trainer at train_jpeg's defaults (nf 320, nb 10, 64 latent
+    channels, patch 256, wgan-gp, QF in 5-50), seeded modules and a
+    seeded host batch."""
+    import numpy as np
+    import torch
+    from exsr_torch.models.dncnn import DnCNN, DnCNNConfig, \
+        DnCNNDiscriminator
+    from exsr_torch.train.decomp import DecompConfig, DecompTrainer
+    cfg = DecompConfig(optimal_z_iters=optimal_z_iters)
+    g = DnCNN(DnCNNConfig(n_channels=JPEG_NF, depth=JPEG_NB,
+                          num_latent_channels=cfg.num_latent_channels),
+              seed=0)
+    d = DnCNNDiscriminator(n_channels=JPEG_NF, depth=JPEG_NB,
+                           expected_input_size=cfg.patch_size // 8,
+                           norm='layer', seed=1)
+    rng = np.random.default_rng(seed)
+    data = {'uncomp': torch.from_numpy(_y_images(batch, cfg.patch_size,
+                                                 seed)),
+            'qf': torch.from_numpy(rng.integers(5, 51, size=batch)
+                                   .astype(np.int32))}
+    return DecompTrainer(cfg), g, d, data
+
+
+def phase_train_jpeg_step(device, name):
+    """The explorable-JPEG Y trainer at train_jpeg's defaults on the card,
+    with TF32 switched on around it: each step kind (a warm-up and two
+    timed calls), host ms ending in a synchronize, the MAP loop's share by
+    CUDA events, device launches and busy share per step (profiler),
+    peak memory, what each step moves, and a profile of one dual G
+    step."""
+    import math
+    import torch
+    from exsr_torch.utils.misc import fetch_scalars
+    t_phase = time.perf_counter()
+    trainer, g, d, data = jpeg_train_setup(JPEG_TRAIN_BATCH, seed=51)
+    state = trainer.init_state(g, d, seed=2, device=device)
+    batch = {k: v.to(device) for k, v in data.items()}
+    map_events = []
+    optimal_z = trainer._optimal_z
+
+    def timed_optimal_z(*a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = optimal_z(*a, **k)
+        end.record()
+        map_events.append((start, end))
+        return out
+    trainer._optimal_z = timed_optimal_z
+
+    def step(kind, dual):
+        if kind == 'd':
+            return trainer.d_step(state, batch, dual=dual)
+        return trainer.g_step(state, batch, dual=dual)
+    records = {}
+    with tf32_on() as flags:
+        for kind, dual in TRAIN_KINDS:
+            key = f'{kind}_{"dual" if dual else "single"}'
+            rec = records[key] = dict(ms=[], map_ms=[], peak_gib=[])
+            for rep in range(1 + TRAIN_REPS):
+                g0, d0 = _snap(state.g.parameters()), \
+                    _snap(state.d.parameters())
+                bn0 = _snap(_running(state.g))
+                map_events.clear()
+                torch.cuda.reset_peak_memory_stats(device)
+                zero_launches()
+                t0 = time.perf_counter()
+                state, metrics = step(kind, dual)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                launches = read_launches()
+                check(not any(launches.values()),
+                      f'train_jpeg {key}: hand-written kernels {launches}')
+                metrics = fetch_scalars(metrics)
+                check(all(math.isfinite(v) for v in metrics.values()),
+                      f'train_jpeg {key} metrics {metrics}')
+                check(_moved(state.d.parameters(), d0) == (kind == 'd')
+                      and _moved(state.g.parameters(), g0) == (kind == 'g')
+                      and _moved(_running(state.g), bn0) == (kind == 'g'),
+                      f'train_jpeg {key} moved the wrong state')
+                state = trainer.advance(state)
+                if rep == 0:
+                    rec['metrics'] = metrics
+                    continue
+                rec['ms'].append(ms)
+                rec['map_ms'].append(sum(s.elapsed_time(e)
+                                         for s, e in map_events))
+                rec['peak_gib'].append(
+                    torch.cuda.max_memory_allocated(device) / 2 ** 30)
+            rec['map_share'] = sum(rec['map_ms']) / sum(rec['ms'])
+            prof = profile_forward(lambda _: step(kind, dual), None)
+            state = trainer.advance(state)
+            rec.update(device_launches=prof['kernel_calls'],
+                       device_busy_share=prof['device_busy_share'])
+            if key == 'g_dual':
+                rec['profile'] = {k: prof[k] for k in (
+                    'device_us_total', 'wall_us', 'device_busy_share',
+                    'kernel_calls')}
+                rec['profile']['top10'] = prof['top'][:10]
+            emit('train_jpeg_step', device=name, step=key, **rec)
+    trainer._optimal_z = optimal_z
+    # control: the non-dual D step with its fakes through cuDNN
+    control = []
+    with tf32_on(), _cudnn_fakes():
+        for _ in range(1 + TRAIN_REPS):
+            t0 = time.perf_counter()
+            state, _ = step('d', False)
+            torch.cuda.synchronize()
+            control.append(1e3 * (time.perf_counter() - t0))
+    iteration = {k: records[f'd_{k}']['ms'][-1] + records[f'g_{k}']['ms'][-1]
+                 for k in ('single', 'dual')}
+    cfg = trainer.cfg
+    emit('train_jpeg', device=name, nf=JPEG_NF, nb=JPEG_NB,
+         latent_channels=cfg.latent_channels, patch=cfg.patch_size,
+         batch=JPEG_TRAIN_BATCH, gan=cfg.gan_type,
+         optimal_z_iters=cfg.optimal_z_iters, qf=[5, 50], flags=flags,
+         ms_per_iteration=iteration,
+         control_d_single_cudnn_fakes_ms=control[1:],
+         phase_s=time.perf_counter() - t_phase)
+    del state, batch
+    torch.cuda.empty_cache()
+    return records
+
+
+@contextlib.contextmanager
+def _cudnn_fakes():
+    """The Y trainer's D-step fakes generated through cuDNN: the control
+    for the trainer's making them without it."""
+    from exsr_torch.train import decomp
+    saved = decomp._without_cudnn
+    decomp._without_cudnn = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        decomp._without_cudnn = saved
+
+
+def _to(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _to(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _jpeg_reference_grads(where, kind, g, d, data, draws):
+    """One Y step's gradients (a non-dual D step, or a dual G step with
+    the GAN term) on ``where`` (a device, or ``'float64'`` for the CPU in
+    float64), with the generator's running statistics after it."""
+    import copy
+    from exsr_torch.device import full_fp32
+    f64 = where == 'float64'
+    dev = 'cpu' if f64 else where
+    trainer, *_ = jpeg_train_setup(1, 0, optimal_z_iters=JPEG_REF_ITERS)
+    state = trainer.init_state(copy.deepcopy(g), copy.deepcopy(d), seed=3,
+                               device=dev)
+    batch = {k: v.to(dev) for k, v in data.items()}
+    draws = _to(draws, lambda t: t.to(dev))
+    if f64:
+        state.g.double()
+        state.d.double()
+        batch['uncomp'] = batch['uncomp'].double()
+        draws = _to(draws, lambda t: t.double())
+    t0 = time.perf_counter()
+    with full_fp32():
+        if kind == 'd':
+            grads, _ = trainer.d_grads(state, batch, draws, False)
+        else:
+            grads, _, _ = trainer.g_grads(state, batch, draws, True, True)
+    module = state.d if kind == 'd' else state.g
+    names = [n for n, _ in module.named_parameters()]
+    bn = {n: b.cpu().double() for n, b in state.g.named_buffers()
+          if 'running' in n}
+    return (dict(zip(names, (t.detach().cpu().double() for t in grads))),
+            bn, time.perf_counter() - t0)
+
+
+def phase_train_jpeg_reference(device, name):
+    """The Y trainer at full width, batch 2, on the card against the CPU on
+    the same draws: a non-dual D step and a dual G step with two inner
+    iterations.  Gradients within 1e-4 of the largest element, else no
+    farther from the same step in float64 on the CPU than three times the
+    CPU's fp32 run (phase 12's rule); the generator's running statistics
+    after the G step within 1e-5 (absolute and relative).  Then one
+    ChromaDecompTrainer step at the chroma CLI's width (nf 160 under a
+    320-wide Y generator, batch 16), timed."""
+    import math
+    import torch
+    from exsr_torch.utils.misc import fetch_scalars
+    t_phase = time.perf_counter()
+    trainer, g, d, data = jpeg_train_setup(JPEG_REF_BATCH, seed=53,
+                                           optimal_z_iters=JPEG_REF_ITERS)
+    state = trainer.init_state(g, d, seed=3, device=device)
+    draws = {'d': trainer.draw_d(state, (JPEG_REF_BATCH, 32, 32, 64), False),
+             'g': trainer.draw_g(state, (JPEG_REF_BATCH, 32, 32, 64), True)}
+    g, d = state.g.cpu(), state.d.cpu()
+    del state
+    rec = {'batch': JPEG_REF_BATCH, 'inner_iters': JPEG_REF_ITERS}
+    with tf32_on():
+        for kind in ('d', 'g'):
+            card, card_bn, card_s = _jpeg_reference_grads(
+                device, kind, g, d, data, draws[kind])
+            cpu, cpu_bn, cpu_s = _jpeg_reference_grads(
+                'cpu', kind, g, d, data, draws[kind])
+            r = rec[kind] = dict(dual=kind == 'g', tol=1e-4,
+                                 max_rel_err=_grad_gap(card, cpu),
+                                 worst=_worst(card, cpu), card_s=card_s,
+                                 cpu_s=cpu_s)
+            if r['max_rel_err'] > 1e-4:
+                exact, _, r['float64_s'] = _jpeg_reference_grads(
+                    'float64', kind, g, d, data, draws[kind])
+                r.update(card_vs_float64=_grad_gap(card, exact),
+                         cpu_vs_float64=_grad_gap(cpu, exact))
+                check(r['card_vs_float64'] <= max(
+                    1e-4, 3 * r['cpu_vs_float64']),
+                    f'train_jpeg {kind} gradients card vs float64 {r}')
+            if kind == 'd':
+                # control, recorded: the fakes through cuDNN (its FFT
+                # convolutions at these shapes)
+                with _cudnn_fakes():
+                    ctl, _, _ = _jpeg_reference_grads(device, kind, g, d,
+                                                      data, draws[kind])
+                exact = exact if 'float64_s' in r else \
+                    _jpeg_reference_grads('float64', kind, g, d, data,
+                                          draws[kind])[0]
+                r['control_cudnn_fakes_vs_float64'] = _grad_gap(ctl, exact)
+            if kind == 'g':
+                r['bn_max_abs_err'] = max(float((card_bn[k] - v).abs().max())
+                                          for k, v in cpu_bn.items())
+                r['bn_max_rel_err'] = max(float(((card_bn[k] - v).abs()
+                                                 / v.abs().clamp(min=1))
+                                                .max())
+                                          for k, v in cpu_bn.items())
+                for k, v in cpu_bn.items():
+                    torch.testing.assert_close(card_bn[k], v, atol=1e-5,
+                                               rtol=1e-5, msg=k)
+        rec['chroma'] = _chroma_step(device)
+    check(all(math.isfinite(v) for v in rec['chroma']['metrics'].values()),
+          f'chroma metrics {rec["chroma"]}')
+    rec['phase_s'] = time.perf_counter() - t_phase
+    emit('train_jpeg_reference', device=name, nf=JPEG_NF, nb=JPEG_NB, **rec)
+    return rec
+
+
+def _chroma_step(device):
+    """ChromaDecompTrainer at the chroma CLI's width, batch 16, patch 256:
+    ms per step (a warm-up and two timed calls) and peak memory."""
+    import numpy as np
+    import torch
+    from exsr_torch.models.dncnn import DnCNN, DnCNNConfig, \
+        DnCNNDiscriminator
+    from exsr_torch.train.decomp import DecompConfig
+    from exsr_torch.train.decomp_chroma import ChromaDecompTrainer
+    from exsr_torch.utils.misc import fetch_scalars
+    patch = 256
+    gy = DnCNN(DnCNNConfig(n_channels=JPEG_NF, depth=JPEG_NB,
+                           num_latent_channels=64), seed=7)
+    gc = DnCNN(DnCNNConfig(n_channels=CHROMA_NF, depth=JPEG_NB,
+                           in_nc=384, out_nc=128, chroma_generator=True,
+                           block_size=8, num_latent_channels=0), seed=0)
+    d = DnCNNDiscriminator(n_channels=CHROMA_NF, depth=JPEG_NB,
+                           expected_input_size=patch // 16, in_nc=384,
+                           seed=1)
+    tr = ChromaDecompTrainer(DecompConfig(latent_channels=0,
+                                          chroma_mode=True), gy)
+    state = tr.init_state(gc, d, seed=2, device=device)
+    rng = np.random.default_rng(57)
+    ycbcr = np.concatenate([_y_images(JPEG_TRAIN_BATCH, patch, 58),
+                            rng.uniform(60, 200, size=(
+                                JPEG_TRAIN_BATCH, patch, patch, 2))],
+                           -1).astype(np.float32)
+    batch = {'uncomp': torch.from_numpy(ycbcr).to(device),
+             'qf': torch.from_numpy(rng.integers(5, 51, JPEG_TRAIN_BATCH)
+                                    .astype(np.int32)).to(device)}
+    ms = []
+    for rep in range(1 + TRAIN_REPS):
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        state, metrics = tr.step(state, batch)
+        torch.cuda.synchronize()
+        if rep:
+            ms.append(1e3 * (time.perf_counter() - t0))
+    return dict(nf=CHROMA_NF, y_nf=JPEG_NF, nb=JPEG_NB,
+                batch=JPEG_TRAIN_BATCH, patch=patch, ms=ms,
+                peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
+                metrics=fetch_scalars(metrics))
+
+
+def phase_train_jpeg_cli(device, name):
+    """``python -m exsr_torch.apps.train_jpeg``'s ``main`` at its defaults
+    (nf 320, nb 10, batch 16, patch 256) on 16 synthetic 256 x 256 PNGs,
+    with TF32 on: two steps with a validation and checkpoints, a resume to
+    a third, then ``--chroma --y_ckpt`` on that checkpoint at nf 160, then
+    ``eval_jpeg --checkpoint`` on it: its summary finite, every decode
+    within half a bin."""
+    import contextlib
+    import io
+    import json as _json
+    import math
+    import os
+    import tempfile
+    from exsr_torch.apps import eval_jpeg, train_jpeg
+    from exsr_torch.train.checkpoints import CheckpointManager
+    from exsr_torch.utils.logging import MetricLog
+    t_phase = time.perf_counter()
+    rec = {}
+    zero_launches()
+    with tempfile.TemporaryDirectory() as tmp, tf32_on() as flags:
+        rec['flags'] = flags
+        data, val, exp = f'{tmp}/data', f'{tmp}/val', f'{tmp}/exp'
+        os.makedirs(data)
+        os.makedirs(val)
+        _write_pngs(data, CLI_TRAIN_IMAGES, 256, seed=61)
+        _write_pngs(val, 2, 256, seed=62)
+        base = ['--data_dir', data, '--print_freq', '1', '--ckpt_freq', '1']
+        runs = (('y', base + ['--exp_dir', exp, '--niter', '2', '--val_dir',
+                              val, '--val_freq', '2']),
+                ('y_resume', base + ['--exp_dir', exp, '--niter', '3',
+                                     '--resume']),
+                ('chroma', base + ['--exp_dir', f'{tmp}/chroma', '--chroma',
+                                   '--nf', str(CHROMA_NF), '--y_nf',
+                                   str(JPEG_NF), '--y_ckpt', f'{exp}/ckpt',
+                                   '--niter', '2', '--val_dir', val,
+                                   '--val_freq', '2']))
+        for tag, argv in runs:
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                train_jpeg.main(argv)
+            text = out.getvalue()
+            rec[tag] = dict(wall_s=time.perf_counter() - t0, lines=[
+                _json.loads(ln) for ln in text.splitlines()
+                if ln.startswith('{')])
+            if tag == 'y_resume':
+                check('resumed at step 2' in text, 'train_jpeg resume')
+            if tag == 'chroma':
+                check('conditioning on Y generator from' in text,
+                      'train_jpeg --y_ckpt')
+        log = MetricLog().load(f'{exp}/logs.npz')
+        check(log.last('psnr_val') is not None
+              and log.last('l_d_total') is not None,
+              f'train_jpeg logs {sorted(log.series)}')
+        clog = MetricLog().load(f'{tmp}/chroma/logs.npz')
+        check(all(math.isfinite(clog.last(k)) for k in (
+            'psnr_chroma_val', 'l_d_total', 'l_g_pix')),
+            f'chroma logs {sorted(clog.series)}')
+        check(CheckpointManager(f'{exp}/ckpt').latest_step() == 3,
+              'train_jpeg last checkpoint')
+        summary = eval_jpeg.main(['--data_dir', val, '--qf', '10', '30',
+                                  '--checkpoint', f'{exp}/ckpt',
+                                  '--out_dir', f'{tmp}/eval'])
+        with open(f'{tmp}/eval/summary.json') as f:
+            per_image = _json.load(f)['per_image']
+        check(all(math.isfinite(v) for v in summary.values()),
+              f'eval_jpeg summary {summary}')
+        check(all(r['bin_consistency_max'] <= 0.5 for r in per_image),
+              'eval_jpeg on the trained checkpoint: bin consistency')
+        rec['eval_jpeg'] = dict(summary=summary, bin_consistency_max=max(
+            r['bin_consistency_max'] for r in per_image))
+        rec['psnr_val'] = log.last('psnr_val')
+        rec['psnr_chroma_val'] = clog.last('psnr_chroma_val')
+    launches = read_launches()
+    check(not any(launches.values()), f'train_jpeg_cli launches {launches}')
+    rec['phase_s'] = time.perf_counter() - t_phase
+    emit('train_jpeg_cli', device=name, images=CLI_TRAIN_IMAGES, hw=256,
+         **rec)
+    return rec
+
+
+def _kg_image():
+    """The in-repo 276 x 276 face degraded by a known anisotropic Gaussian
+    x2 kernel (stride 2, VALID): ``(HR [3, 1, 276, 276], LR [132, 132, 3],
+    the kernel)``."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from exsr_torch.kernelgan.kernelgan import aniso_gaussian_kernel
+    img = np.asarray(Image.open(KG_IMAGE).convert('RGB'),
+                     np.float32) / 255.0
+    k_true = aniso_gaussian_kernel(13, 2.0, 0.8, 0.6, sf=2)
+    hr = torch.from_numpy(img).permute(2, 0, 1)[:, None]
+    lr = torch.nn.functional.conv2d(
+        hr, torch.from_numpy(k_true.astype(np.float32))[None, None],
+        stride=2)
+    return hr, lr[:, 0].permute(1, 2, 0).numpy(), k_true
+
+
+def _kg_quality(hr, k_true, k_rec) -> dict:
+    """``cov_rel_err`` (the recovered kernel's centred covariance against
+    the truth's, over the truth's largest entry) and the x2 downscaling
+    action's MAE against the true kernel's, beside the bicubic
+    assumption's (``tests/test_kernelgan.py``'s measures)."""
+    import numpy as np
+    import torch
+    from exsr_torch.kernelgan.kernelgan import BICUBIC_K8, kernel_moments
+    _, cov_t = kernel_moments(k_true)
+    _, cov_r = kernel_moments(k_rec)
+    size = max(k_true.shape[0], k_rec.shape[0])
+    size += (size - k_true.shape[0]) % 2
+
+    def action(k):
+        p = size + (size - k.shape[0]) % 2 - k.shape[0]
+        ke = np.pad(k, p // 2)
+        return torch.nn.functional.conv2d(
+            hr.double(), torch.from_numpy(ke)[None, None].double(),
+            stride=2)[:, 0].numpy()
+    bic = np.zeros((13, 13))
+    bic[2:10, 2:10] = BICUBIC_K8
+    lr_t, lr_r, lr_b = action(k_true), action(k_rec), action(bic)
+    m = min(lr_t.shape[1], lr_r.shape[1]) - 8
+    crop = (slice(None), slice(4, m), slice(4, m))
+    return {'cov_rel_err': float(np.abs(cov_r - cov_t).max()
+                                 / np.abs(cov_t).max()),
+            'action_mae': float(np.abs(lr_t[crop] - lr_r[crop]).mean()),
+            'action_mae_bicubic': float(np.abs(lr_t[crop]
+                                               - lr_b[crop]).mean())}
+
+
+def _kg_runs(lr, iters, where):
+    """KernelGAN at its default width from seed 0's weights and crops on
+    each ``(device, dtype)``: ``{tag: (losses [3, iters], raw kernel)}``."""
+    import numpy as np
+    import torch
+    from exsr_torch.kernelgan.kernelgan import KernelGAN, KernelGANConfig
+    out = {}
+    for tag, dev, dt in where:
+        kg = KernelGAN(KernelGANConfig(max_iters=iters), device=dev)
+        kg.g.to(dt)
+        kg.d.to(dt)
+        kg.estimate(lr)
+        out[tag] = (torch.from_numpy(np.stack(kg.losses)).double(),
+                    torch.from_numpy(kg.raw_kernel).double())
+    return out
+
+
+def _kg_gaps(a, b) -> list:
+    """The losses' largest relative gap, the kernel's over its largest
+    entry."""
+    return [float(((a[0] - b[0]).abs() / b[0].abs()).max()),
+            float((a[1] - b[1]).abs().max() / b[1].abs().max())]
+
+
+def _consistency(sess) -> float:
+    """The largest LR-consistency error of the session's CEM-wrapped view
+    before the display clip, inside the invalidity margins
+    (``tests/test_session.py``'s measure)."""
+    import numpy as np
+    import torch
+    from exsr_torch.cem.cem import consistent_downsample
+    with torch.no_grad():
+        out = sess._wrapped(sess.eff_params, sess._t(sess.lr_image),
+                            sess._t(sess.cur_z),
+                            sess.cem.invalidity_margins_lr, pre_pad=True)
+        down = consistent_downsample(
+            out, sess.filters, sess.cem.ds_kernel_invalidity_half_size_lr)
+    m = int(np.clip(sess.cem.invalidity_margins_lr, 1,
+                    sess.lr_image.shape[1] // 2 - 4))
+    return float(np.abs(down.cpu().numpy()
+                        - sess.lr_image)[:, m:-m, m:-m].max())
+
+
+def phase_kernelgan(device, name):
+    """KernelGAN on the card at its default configuration, TF32 on: one
+    estimation on the in-repo face degraded by a known kernel (seconds,
+    kernel quality: reported, not gated); its first iterations against the
+    CPU (one iteration within 1e-4; twenty no farther from a float64 CPU
+    run than three times the CPU's fp32 run); device launches per
+    iteration and busy share from a profiled 20-iteration run;
+    ``EditSession.estimate_kernel`` at full width (x4), its view and LR
+    consistency against the same session on the CPU, and the session's
+    1e-4 consistency with the kernel of ``exsr``'s own session test; and
+    ``eval_sr --kernel estimated`` on one 128 x 128 LR image, fp32 trunk,
+    with its stage-4 launches."""
+    import math
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from PIL import Image
+    from exsr_torch.apps import eval_sr
+    from exsr_torch.apps.session import EditSession
+    from exsr_torch.kernelgan.kernelgan import (KernelGAN, KernelGANConfig,
+                                                analytic_x4_kernel,
+                                                post_process_kernel)
+    t_phase = time.perf_counter()
+    hr, lr, k_true = _kg_image()
+    with tf32_on() as flags:
+        kg = KernelGAN(KernelGANConfig(), device=device)
+        t0 = time.perf_counter()
+        k = kg.estimate(lr)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(bool(np.isfinite(k).all()) and abs(k.sum() - 1.0) < 1e-3,
+              f'kernelgan kernel sum {k.sum()}')
+        f32, f64 = torch.float32, torch.float64
+        one = _kg_runs(lr, 1, [('card', device, f32), ('cpu', 'cpu', f32)])
+        gaps = _kg_gaps(one['card'], one['cpu'])
+        check(max(gaps) < 1e-4, f'kernelgan first iteration {gaps}')
+        runs = _kg_runs(lr, KG_CHECK_ITERS, [
+            ('card', device, f32), ('cpu', 'cpu', f32),
+            ('float64', 'cpu', f64)])
+        card = _kg_gaps(runs['card'], runs['float64'])
+        cpu = _kg_gaps(runs['cpu'], runs['float64'])
+        vs_cpu = dict(first_iteration=gaps, iters=KG_CHECK_ITERS,
+                      card_vs_cpu=_kg_gaps(runs['card'], runs['cpu']),
+                      card_vs_float64=card, cpu_vs_float64=cpu)
+        check(all(c <= max(1e-4, 3 * p) for c, p in zip(card, cpu)),
+              f'kernelgan card vs float64 {vs_cpu}')
+        short = KernelGAN(KernelGANConfig(max_iters=KG_CHECK_ITERS),
+                          device=device)
+        prof = profile_forward(lambda _: short.estimate(lr), None)
+    emit('kernelgan', device=name, image=KG_IMAGE, lr_shape=list(lr.shape),
+         iters=kg.cfg.max_iters, estimate_s=seconds,
+         ms_per_iteration=1e3 * seconds / kg.cfg.max_iters, flags=flags,
+         kernel_shape=list(k.shape), kernel_sum=float(k.sum()),
+         final_losses=[float(v[-1]) for v in kg.losses],
+         **_kg_quality(hr, k_true, k), card_vs_cpu=vs_cpu,
+         profile=dict(iters=KG_CHECK_ITERS, wall_us=prof['wall_us'],
+                      device_busy_share=prof['device_busy_share'],
+                      launches_per_iteration=prof['kernel_calls']
+                      / KG_CHECK_ITERS, top5=prof['top'][:5]))
+
+    with tf32_on():
+        sess = EditSession(scale=4, nb=23, nf=64, latent_channels=3,
+                           device=device)
+        sess.init_random_params(0)
+        sess.open_image(lr, is_hr=False)
+        rec = {'consistency_bicubic': _consistency(sess)}
+        t0 = time.perf_counter()
+        kern = sess.estimate_kernel()
+        torch.cuda.synchronize()
+        rec.update(seconds=time.perf_counter() - t0,
+                   kernel_shape=list(kern.shape),
+                   margins_lr=sess.cem.invalidity_margins_lr,
+                   consistency=_consistency(sess))
+        check(sess.estimated_kernel is not None and sess.sr is not None,
+              'estimate_kernel did not switch the CEM')
+        # the same kernel in the same session on the CPU: the view and its
+        # consistency (exsr's estimated-kernel chain is not exact for
+        # every kernel; tests/test_torch_kernelgan.py holds the port's to
+        # exsr's)
+        ref = EditSession(scale=4, nb=23, nf=64, latent_channels=3,
+                          device='cpu')
+        ref.load_params({k: v.cpu() for k, v in sess.params.items()})
+        ref.open_image(lr, is_hr=False)
+        ref.set_kernel(kern)
+        rec['cpu_consistency'] = _consistency(ref)
+        rec['view_vs_cpu'] = float(np.abs(sess.sr - ref.sr).max())
+        check(rec['view_vs_cpu'] < 1e-4
+              and abs(rec['consistency'] - rec['cpu_consistency']) < 1e-4,
+              f'estimate_kernel card vs CPU {rec}')
+        del ref
+        # the kernel of exsr's session test (13 x 13, isotropic, sigma
+        # 1.3, at x4), where the chain holds the session's 1e-4, and the
+        # true kernel of the degraded image, composed to x4
+        x = np.arange(13) - 6.0
+        g1 = np.exp(-x ** 2 / (2 * 1.3 ** 2))
+        sess.set_kernel(np.outer(g1, g1) / np.outer(g1, g1).sum())
+        rec['consistency_exsr_test_kernel'] = _consistency(sess)
+        check(rec['consistency_exsr_test_kernel'] < 1e-4,
+              f'estimated-kernel CEM consistency {rec}')
+        sess.set_kernel(analytic_x4_kernel(post_process_kernel(
+            k_true.astype(np.float64), 2)))
+        rec['consistency_true_kernel_x4'] = _consistency(sess)
+        del sess
+    emit('kernelgan_session', device=name, scale=4, nb=23, nf=64, **rec)
+
+    with tf32_on(), tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(f'{tmp}/lr')
+        img = np.asarray(Image.open(KG_IMAGE).convert('RGB'))
+        Image.fromarray(img[:KG_EVAL_LR, :KG_EVAL_LR]).save(
+            f'{tmp}/lr/face.png')
+        zero_launches()
+        t0 = time.perf_counter()
+        summary = eval_sr.main([
+            '--lr_dir', f'{tmp}/lr', '--kernel', 'estimated',
+            '--kernelgan_iters', str(KG_EVAL_ITERS), '--num_z', '2',
+            '--out_dir', f'{tmp}/out'])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        with open(f'{tmp}/out/summary.json') as f:
+            per_image = json.load(f)['per_image']
+    check(all(math.isfinite(v) for v in summary.values()),
+          f'eval_sr estimated {summary}')
+    # one batched forward of the grouped fp32 trunk; the estimated
+    # kernel's CEM takes the plain 2-D path
+    check(launches['stage4'] == 69 and launches['rdb'] == 0,
+          f'eval_sr estimated launches {launches}')
+    emit('kernelgan_eval_sr', device=name, lr=KG_EVAL_LR,
+         kernelgan_iters=KG_EVAL_ITERS, num_z=2,
+         time_s=per_image[0]['time_s'], wall_s=wall, launches=launches,
+         summary=summary, phase_s=time.perf_counter() - t_phase)
+
 def train_rows(records, kern, taps) -> dict:
     """The training path's fields of each CEM kernel's row of the kernels
     line: launches per step kind and per iteration (D then G step), and
@@ -2103,6 +2744,10 @@ def main() -> int:
     jpeg_bytes = phase_jpeg_codec(device, name)
     phase_jpeg_edit(device, name, jpeg_bytes)
     phase_jpeg_eval_cli(device, name)
+    phase_train_jpeg_step(device, name)
+    phase_train_jpeg_reference(device, name)
+    phase_train_jpeg_cli(device, name)
+    phase_kernelgan(device, name)
     train = train_rows(train_records, train_kern, train_taps)
 
     # launches: the total over the forwards of the path that runs the
@@ -2133,12 +2778,16 @@ def main() -> int:
                 'hr_bound_ms': hr['bound_ms']}),
             ('down', 'sepfilter_down', {}),
             ('up', 'sepfilter_up[combine]', {'mode': 'combine'}))] + [
+        # library_ms stays None (no one call computes either function);
+        # the library chain beside it is phase 3's yardstick
         row('stage4', 'stage4_bf16', launches, forwards,
             source='exsr_torch/csrc/stage4.cu',
-            replaces='exsr/ops/pallas/stage4.py:82', path='main'),
+            replaces='exsr/ops/pallas/stage4.py:82', path='main',
+            library_chain_ms=kern['stage4_bf16']['library_chain_ms']),
         row('rdb', 'rdb_bf16', fused_launches, fused_forwards,
             source='exsr_torch/csrc/rdb.cu',
-            replaces='exsr/ops/pallas/rrdb_block.py:145', path='fused'),
+            replaces='exsr/ops/pallas/rrdb_block.py:145', path='fused',
+            library_chain_ms=kern['rdb_bf16']['library_chain_ms']),
         dict(taps_row(kern, edit_runs), train=train['sepfilter_taps'],
              even_taps_max_rel_err=max(r['max_rel_err']
                                        for r in even_taps.values()),

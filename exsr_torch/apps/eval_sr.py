@@ -286,7 +286,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument('--kernel', choices=['bicubic', 'estimated'],
                    default='bicubic',
                    help="'estimated' estimates the kernel per image with "
-                        'KernelGAN (not ported yet)')
+                        'KernelGAN and rebuilds the CEM around it')
     p.add_argument('--kernelgan_iters', type=int, default=3000)
     p.add_argument('--opt', help='reference-style test options JSON: fills '
                                  'scale, nb, nf, the latent channels, the '
@@ -368,13 +368,10 @@ def main(argv=None):
         if args.latent != 'rand_uniform':
             raise ValueError('latent modes need a latent-input generator')
         args.num_z = 1
-    if args.kernel == 'estimated':
-        raise NotImplementedError(
-            'KernelGAN is not ported yet (ROADMAP.md queue 1, item 5, '
-            '"KernelGAN"): --kernel estimated needs it')
     device = resolve_device(args.device)
 
     from exsr_torch.data.datasets import LRDataset, LRHRDataset
+    from exsr_torch.kernelgan.kernelgan import estimate_sr_kernel
     from exsr_torch.ops.resize import imresize
     from exsr_torch.utils.color import tensor2img
     from exsr_torch.utils.metrics import (calculate_psnr, calculate_ssim,
@@ -391,6 +388,8 @@ def main(argv=None):
                                    use_cem=use_cem)
     session = None
     if opt_objective:
+        if args.kernel == 'estimated':
+            raise ValueError('optimizer latent modes use the bicubic CEM')
         if not (use_cem and arch == 'RRDB_net'):
             raise ValueError('optimizer latent modes need the CEM-wrapped '
                              'explorable RRDB generator')
@@ -423,6 +422,14 @@ def main(argv=None):
         item = ds[i]
         lr = item['lr'][None]
         name = os.path.splitext(os.path.basename(item['path']))[0]
+        cem_i, fwd = cem, forward
+        if args.kernel == 'estimated':
+            # the image's blind kernel, and the CEM rebuilt around it
+            cem_i, fwd = build_model(
+                args.scale, args.nb, latent_channels=nz, nf=nf,
+                device=device, checkpoint=args.checkpoint,
+                upscale_kernel=estimate_sr_kernel(
+                    item['lr'], args.scale, args.kernelgan_iters, device))
         t0 = time.time()
         hr_hw = (lr.shape[1] * args.scale, lr.shape[2] * args.scale)
         rec = {'name': name}
@@ -438,7 +445,7 @@ def main(argv=None):
         else:
             rng = np.random.default_rng(i)
             zs, psnr_idx = build_zs(args, hr_hw, rng, nz=nz)
-            outs = bucketed_sweep(forward, lr, zs)
+            outs = bucketed_sweep(fwd, lr, zs)
         if device.type == 'cuda':
             torch.cuda.synchronize(device)
         dt = time.time() - t0
@@ -459,7 +466,7 @@ def main(argv=None):
         if use_cem:
             sr_host = outs[psnr_idx][0].cpu().numpy()
             down = imresize(sr_host.astype(np.float64), 1.0 / args.scale)
-            m = max(int(cem.invalidity_margins_lr), 1)
+            m = max(int(cem_i.invalidity_margins_lr), 1)
             m = min(m, (min(down.shape[0], down.shape[1]) - 1) // 2)
             m = max(m, 1)
             if down.shape[0] > 2 * m and down.shape[1] > 2 * m:
@@ -473,7 +480,7 @@ def main(argv=None):
                 # the ground truth's and the outputs' deviation from the
                 # projection onto the space orthogonal to the null space:
                 # the component that exploring Z can vary
-                proj = cem.project_2_ortho_2_ns(
+                proj = cem_i.project_2_ortho_2_ns(
                     item['hr'].astype(np.float64))
                 rec['hr_std'] = float(
                     255 * (item['hr'] - proj).std(axis=(0, 1)).mean())
@@ -495,7 +502,7 @@ def main(argv=None):
             for v in np.linspace(-1.0, 1.0, args.z_sweep_gif):
                 z = np.zeros((1,) + hr_hw + (nz,), np.float32)
                 z[..., 0] = v
-                frames.append(Image.fromarray(tensor2img(forward(lr, z))))
+                frames.append(Image.fromarray(tensor2img(fwd(lr, z))))
             frames[0].save(
                 os.path.join(args.out_dir, f'{name}_Zsweep.gif'),
                 save_all=True, append_images=frames[1:], duration=150,

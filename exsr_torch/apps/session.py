@@ -25,7 +25,8 @@ for the CPU).  Random alternatives and ``random_*`` objectives draw from a
 ``torch.Generator`` seeded by ``seed`` (``exsr`` seeds them from the
 clock).  Forwards and edits run with TF32 off
 (:func:`exsr_torch.device.full_fp32`), as ``exsr`` computes in fp32.
-``estimate_kernel`` (KernelGAN) is not ported yet.
+``estimate_kernel`` runs KernelGAN on the open LR image and rebuilds the
+CEM around its kernel.
 """
 from __future__ import annotations
 
@@ -186,10 +187,17 @@ class EditSession:
             self.recompute()
         return self.sr
 
-    def estimate_kernel(self, max_iters: int = 3000):
-        raise NotImplementedError(
-            'KernelGAN is not ported yet (ROADMAP.md queue 1, item 5, '
-            '"KernelGAN"); pass an estimated kernel to set_kernel')
+    def estimate_kernel(self, max_iters: int = 3000) -> np.ndarray:
+        """Estimate the open LR image's downscaling kernel with KernelGAN
+        (x2, composed to x4 at scale 4) on the session's device and switch
+        the CEM to it; returns the kernel."""
+        if self.lr_image is None:
+            raise ValueError('open an image first')
+        from exsr_torch.kernelgan.kernelgan import estimate_sr_kernel
+        kernel = estimate_sr_kernel(self.lr_image[0], self.scale, max_iters,
+                                    self._device)
+        self.set_kernel(kernel)
+        return kernel
 
     # -------------------------------------------------------------- loading
     def load_params(self, params):

@@ -1,13 +1,14 @@
-"""Image-folder datasets and the batch loader of the SR CLIs.
+"""Image-folder datasets and the batch loader of the training and
+evaluation CLIs.
 
-The port's own copy of ``exsr/data/datasets.py`` as far as evaluation and
-SR training need it: :func:`list_images`, :func:`read_img` (PIL, as
-``exsr`` reads images), :class:`LRHRDataset` (LR read from ``lr_root`` or
-synthesized from HR by the port's ``imresize``; random LR-aligned crops and
-flip/rotate augmentation when ``train`` and ``patch_size`` are set),
-:class:`LRDataset`, and :class:`DataLoader`, the threaded, seeded batch
-iterator.  Items are float32 HWC numpy arrays in [0, 1]; batches stack
-them to NHWC.
+The port's own copy of ``exsr/data/datasets.py`` without its LMDB half:
+:func:`list_images`, :func:`read_img` (PIL, as ``exsr`` reads images),
+:class:`LRHRDataset` (LR read from ``lr_root`` or synthesized from HR by
+the port's ``imresize``; random LR-aligned crops and flip/rotate
+augmentation when ``train`` and ``patch_size`` are set), :class:`LRDataset`,
+:class:`JPEGDataset` (uncompressed Y or YCbCr crops in [0, 255] with a
+quality factor each), and :class:`DataLoader`, the threaded, seeded batch
+iterator.  Items are float32 HWC numpy arrays; batches stack them to NHWC.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from typing import Iterator, Sequence
 import numpy as np
 
 from exsr_torch.ops.resize import KernelRegistry, imresize
-from exsr_torch.utils.color import modcrop
+from exsr_torch.utils.color import modcrop, rgb2ycbcr
 
 IMG_EXTENSIONS = ('.png', '.jpg', '.jpeg', '.bmp', '.ppm', '.tif', '.tiff')
 
@@ -143,6 +144,76 @@ class LRDataset:
     def __getitem__(self, idx: int, rng=None):
         return {'lr': read_img(self.lr_paths[idx]).astype(np.float32),
                 'path': self.lr_paths[idx]}
+
+
+@dataclasses.dataclass
+class JPEGDataset:
+    """Uncompressed crops and a JPEG quality factor per item.
+
+    ``qf_spec`` is a list of ``(qf_or_range, probability)``, a range an
+    inclusive ``(lo, hi)`` pair.  In training each item draws a spec by its
+    probability, then a QF from it, and takes a random crop; in evaluation
+    the QFs cycle through the specs' means by index and the crop is
+    central.  A crop smaller than ``patch_size`` is edge-padded.
+    ``uncomp`` is Y ``[ps, ps, 1]`` or, with ``chroma``, YCbCr
+    ``[ps, ps, 3]``, in [0, 255].  ``min_image_size`` drops images whose
+    shorter side is below it.  The same ``np.random.Generator`` state gives
+    the crop and QF ``exsr``'s gives.
+    """
+    root: str
+    patch_size: int = 256
+    chroma: bool = False
+    qf_spec: Sequence = ((10, 1.0),)
+    train: bool = True
+    min_image_size: int | None = None
+
+    def __post_init__(self):
+        self.paths = list_images(self.root)
+        if self.min_image_size:
+            from PIL import Image
+            kept = []
+            for p in self.paths:
+                with Image.open(p) as im:
+                    if min(im.size) >= self.min_image_size:
+                        kept.append(p)
+            self.paths = kept
+        probs = np.array([p for _, p in self.qf_spec], dtype=np.float64)
+        self._probs = probs / probs.sum()
+
+    def __len__(self):
+        return len(self.paths)
+
+    def _sample_qf(self, idx: int, rng: np.random.Generator) -> int:
+        if self.train:
+            spec = self.qf_spec[rng.choice(len(self.qf_spec),
+                                           p=self._probs)][0]
+            if isinstance(spec, (tuple, list)):
+                return int(rng.integers(spec[0], spec[1] + 1))
+            return int(spec)
+        vals = [int(np.mean(s)) if isinstance(s, (tuple, list)) else int(s)
+                for s, _ in self.qf_spec]
+        return vals[idx % len(vals)]
+
+    def __getitem__(self, idx: int, rng: np.random.Generator | None = None):
+        rng = rng or np.random.default_rng()
+        ycbcr = rgb2ycbcr(read_img(self.paths[idx]), only_y=not self.chroma)
+        if ycbcr.ndim == 2:
+            ycbcr = ycbcr[..., None]
+        ps = self.patch_size
+        h, w = ycbcr.shape[:2]
+        if self.train:
+            y = int(rng.integers(0, max(h - ps, 0) + 1))
+            x = int(rng.integers(0, max(w - ps, 0) + 1))
+        else:
+            y, x = max(0, (h - ps) // 2), max(0, (w - ps) // 2)
+        crop = ycbcr[y:y + ps, x:x + ps]
+        if crop.shape[0] < ps or crop.shape[1] < ps:
+            crop = np.pad(crop, ((0, ps - crop.shape[0]),
+                                 (0, ps - crop.shape[1]), (0, 0)),
+                          mode='edge')
+        return {'uncomp': (255.0 * crop).astype(np.float32),
+                'qf': np.int32(self._sample_qf(idx, rng)),
+                'path': self.paths[idx]}
 
 
 class DataLoader:

@@ -3,7 +3,9 @@ RRDBNet (:func:`from_exsr_params`), ``MSRResNet``, ``SRResNet`` and
 ``VGG19Features`` (:func:`from_exsr_flat_params`), the two
 discriminators of the SR trainer (:func:`d_from_exsr_vars`), and the
 explorable-JPEG DnCNN generator and discriminator
-(:func:`dncnn_from_exsr_vars`, :func:`dncnn_d_from_exsr_vars`).
+(:func:`dncnn_from_exsr_vars`, :func:`dncnn_d_from_exsr_vars`), and
+KernelGAN's generator and critic (:func:`kernelgan_g_from_exsr_vars`,
+:func:`kernelgan_d_from_exsr_vars`).
 
 The caller hands over ``exsr``'s params as a nested dict of numpy arrays
 (``jax.tree.map(np.asarray, params)``, or
@@ -138,6 +140,38 @@ def dncnn_d_from_exsr_vars(variables) -> dict:
     if 'Dense_0' in variables['params']:
         out.update({f'fc.{k}': v for k, v in
                     _dense(variables['params']['Dense_0']).items()})
+    for name, entry in (variables.get('spectral') or {}).items():
+        out[f'{name}.u'] = torch.from_numpy(np.array(entry['u']))
+    return out
+
+
+def _kernel(entry) -> torch.Tensor:
+    return torch.from_numpy(np.array(
+        np.asarray(entry['kernel']).transpose(3, 2, 0, 1)))
+
+
+def kernelgan_g_from_exsr_vars(variables) -> dict:
+    """``exsr``'s ``KGGenerator`` variables (numpy tree) -> the state dict
+    of :class:`exsr_torch.kernelgan.kernelgan.KGGenerator`."""
+    p = variables['params'] if 'params' in variables else variables
+    return {f'{name}.weight': _kernel(entry) for name, entry in p.items()}
+
+
+def kernelgan_d_from_exsr_vars(variables) -> dict:
+    """``exsr``'s ``KGDiscriminator`` variables (``params``, ``spectral``
+    and ``batch_stats``, numpy trees) -> the state dict of
+    :class:`exsr_torch.kernelgan.kernelgan.KGDiscriminator`: each
+    spectral-norm conv's weight, bias and ``u``, each batch norm's scale,
+    bias and running statistics."""
+    stats = variables.get('batch_stats') or {}
+    out = {}
+    for name, entry in variables['params'].items():
+        if name.startswith('bn'):
+            out.update({f'{name}.{k}': v for k, v in
+                        _batch_norm(entry, stats.get(name)).items()})
+        else:
+            out[f'{name}.weight'] = _kernel(entry)
+            out[f'{name}.bias'] = torch.from_numpy(np.array(entry['bias']))
     for name, entry in (variables.get('spectral') or {}).items():
         out[f'{name}.u'] = torch.from_numpy(np.array(entry['u']))
     return out

@@ -14,7 +14,10 @@ Generator (:class:`DnCNN`):
 * ReLU after ``conv0``; after each middle conv the norm, then LeakyReLU
   0.01.  Batch norm is flax's ``BatchNorm(momentum=0.05, epsilon=1e-4)``
   (torch's momentum 0.95): running statistics unless ``train``, in which
-  case the batch's (biased variance) normalise and the running ones move.
+  case the batch's (biased variance) normalise.  The running ones move
+  only with ``update_stats``, which defaults to ``train``: ``exsr``'s
+  trainer keeps them from one train-mode forward of each G step and
+  discards them everywhere else.
   Instance norm has eps 1e-5 and no affine; ``'layer'`` and None
   normalise nothing in the generator, as in ``exsr``.
 * The output is ``quantized + (sigmoid(x) - 0.5)``: the correction stays
@@ -85,7 +88,8 @@ def _conv(in_ch: int, out_ch: int, k: int, pad: int, bias: bool,
 
 
 class DnCNN(nn.Module):
-    """The generator; ``forward(coeffs, z=None, train=False)``."""
+    """The generator; ``forward(coeffs, z=None, train=False,
+    update_stats=None)``."""
 
     def __init__(self, cfg: DnCNNConfig = DnCNNConfig(), seed: int = 0):
         super().__init__()
@@ -110,12 +114,16 @@ class DnCNN(nn.Module):
             self.cfg.latent_input == 'first_layer' and i == 0))
 
     def forward(self, quantized_coeffs: torch.Tensor,
-                z: torch.Tensor | None = None, train: bool = False
-                ) -> torch.Tensor:
+                z: torch.Tensor | None = None, train: bool = False,
+                update_stats: bool | None = None) -> torch.Tensor:
         """``quantized_coeffs`` ``[N, h, w, in_nc]`` and ``z``
         ``[N, h, w, nz]`` -> ``[N, h, w, out_nc]`` coefficients (the
-        chroma generator's error with the low frequencies added)."""
+        chroma generator's error with the low frequencies added).
+        ``train`` normalises batch norm by the batch's statistics;
+        ``update_stats`` (``train`` when None) moves the running ones."""
         cfg = self.cfg
+        if update_stats is None:
+            update_stats = train
         x = to_nchw(quantized_coeffs)
         zc = to_nchw(z) if self.nz else None
         for i in range(cfg.depth):
@@ -128,7 +136,8 @@ class DnCNN(nn.Module):
                 x = F.relu(x)
                 continue
             if cfg.norm == 'batch':
-                x = self.bns[i - 1](x, update_stats=train, batch_stats=train)
+                x = self.bns[i - 1](x, update_stats=update_stats,
+                                   batch_stats=train)
             elif cfg.norm == 'instance':
                 x = _standardize(x, (2, 3))
             x = F.leaky_relu(x, 0.01)

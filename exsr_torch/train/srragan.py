@@ -159,13 +159,26 @@ def _microbatches(accum: int, *tensors):
     return list(zip(*(t.split(b // accum) for t in tensors)))
 
 
-def _grads(params) -> list:
+def param_grads(params) -> list:
     """The parameters' gradients, a parameter that the loss does not reach
     given zeros (as ``jax.grad`` gives it, so that Adam moves it alike)."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     return [p.grad for p in params]
+
+
+def adam_step(state: TrainState, opt: torch.optim.Adam, base_lr: float,
+              cfg) -> None:
+    """One Adam update at ``lr_scale * multistep_lr(base_lr, step)``
+    (``cfg``'s ``lr_steps`` and ``lr_gamma``), the gradients cleared
+    after."""
+    lr = state.lr_scale * multistep_lr(base_lr, cfg.lr_steps, cfg.lr_gamma,
+                                       state.step)
+    for group in opt.param_groups:
+        group['lr'] = lr
+    opt.step()
+    opt.zero_grad(set_to_none=True)
 
 
 def _mean_metrics(parts: list[dict]) -> dict:
@@ -386,7 +399,7 @@ class SRRaGANTrainer:
                 draws['alpha'][i] if 'alpha' in draws else None, dual)
             (total / accum).backward(inputs=params)
             parts.append(m)
-        return _grads(params), _mean_metrics(parts)
+        return param_grads(params), _mean_metrics(parts)
 
     def d_step(self, state: TrainState, batch: dict, dual: bool = True,
                draws: dict | None = None):
@@ -397,7 +410,7 @@ class SRRaGANTrainer:
                 draws = self.draw_d(state, batch['hr'].shape, dual)
             _, metrics = self.d_grads(state, batch['lr'], batch['hr'],
                                       draws, dual)
-            self._update(state, state.d_opt, self.cfg.lr_d)
+            adam_step(state, state.d_opt, self.cfg.lr_d, self.cfg)
         return state, metrics
 
     # ---------------------------------------------------------------- G step
@@ -483,7 +496,7 @@ class SRRaGANTrainer:
             (total / accum).backward(inputs=params)
             stats = stats.detached()
             parts.append(m)
-        return _grads(params), _mean_metrics(parts), stats
+        return param_grads(params), _mean_metrics(parts), stats
 
     def g_step(self, state: TrainState, batch: dict, dual: bool = True,
                use_gan: bool = True, draws: dict | None = None):
@@ -494,17 +507,8 @@ class SRRaGANTrainer:
                 draws = self.draw_g(state, batch['hr'].shape, dual)
             _, metrics, state.ratio_stats = self.g_grads(
                 state, batch['lr'], batch['hr'], draws, dual, use_gan)
-            self._update(state, state.g_opt, self.cfg.lr_g)
+            adam_step(state, state.g_opt, self.cfg.lr_g, self.cfg)
         return state, metrics
-
-    def _update(self, state: TrainState, opt: torch.optim.Adam,
-                base_lr: float) -> None:
-        lr = state.lr_scale * multistep_lr(base_lr, self.cfg.lr_steps,
-                                           self.cfg.lr_gamma, state.step)
-        for group in opt.param_groups:
-            group['lr'] = lr
-        opt.step()
-        opt.zero_grad(set_to_none=True)
 
     @staticmethod
     def advance(state: TrainState) -> TrainState:

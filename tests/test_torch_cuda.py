@@ -931,3 +931,106 @@ def test_native_jfif_scan_matches_python_reader(cuda):
         for x, y in zip(a['components'], b['components']):
             np.testing.assert_array_equal(x.coeffs, y.coeffs)
             np.testing.assert_array_equal(x.q_table, y.q_table)
+
+
+def _decomp_grads(dev, kind, dual, draws, float64=False):
+    """One explorable-JPEG step's gradients and metrics on ``dev`` (nf 32,
+    depth 4, patch 64, batch 2), from ``draws`` (``float64``: on the CPU
+    in float64), and the generator's running statistics after it; without
+    ``draws``, the draws."""
+    from exsr_torch.models.dncnn import (DnCNN, DnCNNConfig,
+                                         DnCNNDiscriminator)
+    from exsr_torch.train.decomp import DecompConfig, DecompTrainer
+    tr = DecompTrainer(DecompConfig(optimal_z_iters=2))
+    state = tr.init_state(
+        DnCNN(DnCNNConfig(n_channels=32, depth=4, num_latent_channels=64),
+              seed=3),
+        DnCNNDiscriminator(n_channels=32, depth=4, expected_input_size=8,
+                           seed=4), 0, dev)
+    rng = np.random.default_rng(5)
+    batch = {'uncomp': torch.from_numpy((255 * rng.uniform(
+                 size=(2, 64, 64, 1))).astype(np.float32)).to(dev),
+             'qf': torch.tensor([7, 33], device=dev)}
+    if draws is None:
+        draw = tr.draw_d if kind == 'd' else tr.draw_g
+        return draw(state, (2, 8, 8, 64), dual)
+    cast = (lambda t: t.to(dev, torch.float64)) if float64 else \
+        (lambda t: t.to(dev))
+    draws = {k: _map(v, cast) for k, v in draws.items()}
+    if float64:
+        state.g.double()
+        state.d.double()
+        batch['uncomp'] = batch['uncomp'].double()
+    if kind == 'd':
+        grads, metrics = tr.d_grads(state, batch, draws, dual)
+    else:
+        grads, metrics, _ = tr.g_grads(state, batch, draws, dual, True)
+    return ([g.detach().cpu().double() for g in grads],
+            {k: float(v) for k, v in metrics.items()},
+            {k: v.cpu().double() for k, v in state.g.state_dict().items()
+             if 'running' in k})
+
+
+@pytest.mark.parametrize('kind,dual', [('d', False), ('g', False),
+                                       ('d', True), ('g', True)])
+def test_decomp_step_on_cuda_matches_cpu(cuda, kind, dual):
+    """The explorable-JPEG trainer's D and G gradients on the card against
+    the CPU on the same draws: within 1e-4 of the largest element, else
+    (the MAP loop's Adam steps and the critic's input make the gradients
+    sensitive to rounding) no farther from the CPU's float64 run than three
+    times the CPU's fp32 run; the generator's running statistics within
+    1e-5."""
+    cpu = torch.device('cpu')
+    draws = _decomp_grads(cuda, kind, dual, None)
+    g_gpu, m_gpu, bn_gpu = _decomp_grads(cuda, kind, dual, draws)
+    g_cpu, m_cpu, bn_cpu = _decomp_grads(cpu, kind, dual, draws)
+    if _gap(g_gpu, g_cpu) >= 1e-4:
+        exact = _decomp_grads(cpu, kind, dual, draws, float64=True)[0]
+        assert _gap(g_gpu, exact) <= max(1e-4, 3 * _gap(g_cpu, exact))
+    else:
+        for k, v in m_cpu.items():
+            assert m_gpu[k] == pytest.approx(v, rel=1e-4, abs=1e-6), k
+    for k, v in bn_cpu.items():
+        torch.testing.assert_close(bn_gpu[k], v, atol=1e-5, rtol=1e-5)
+
+
+def _kernelgan_runs(iters, devices):
+    """KernelGAN at its default width from seed 0's weights and crops on
+    each ``(device, dtype)``: ``{(device, dtype): (losses, raw kernel)}``."""
+    from exsr_torch.kernelgan.kernelgan import KernelGAN, KernelGANConfig
+    img = np.random.default_rng(8).uniform(size=(96, 96, 3)).astype(
+        np.float32)
+    runs = {}
+    for dev, dt in devices:
+        kg = KernelGAN(KernelGANConfig(max_iters=iters), device=dev)
+        kg.g.to(dt)
+        kg.d.to(dt)
+        kg.estimate(img)
+        runs[(str(dev), dt)] = (np.stack(kg.losses), kg.raw_kernel)
+    return runs
+
+
+def _kg_gaps(a, b):
+    """(losses' largest relative gap, kernel's gap over its largest
+    entry)."""
+    return (float(np.max(np.abs(a[0] - b[0]) / np.abs(b[0]))),
+            float(np.abs(a[1] - b[1]).max() / np.abs(b[1]).max()))
+
+
+def test_kernelgan_first_iterations_on_cuda_match_cpu(cuda):
+    """KernelGAN at its default width on the card against the CPU, from
+    the same initial weights and crops.  One iteration: the losses within
+    1e-4 relative, the kernel within 1e-4 of its largest entry.  Twenty:
+    Adam's normalised steps make the run sensitive to rounding (fp32
+    against float64 on the CPU parts by ~2 % of the kernel), so the card's
+    losses and kernel must be no farther from the CPU's float64 run than
+    three times the CPU's fp32 run is."""
+    f32, f64 = torch.float32, torch.float64
+    one = _kernelgan_runs(1, [('cpu', f32), (cuda, f32)])
+    assert max(_kg_gaps(one[(str(cuda), f32)], one[('cpu', f32)])) < 1e-4
+    runs = _kernelgan_runs(20, [('cpu', f32), ('cpu', f64), (cuda, f32)])
+    exact = runs[('cpu', f64)]
+    card = _kg_gaps(runs[(str(cuda), f32)], exact)
+    cpu = _kg_gaps(runs[('cpu', f32)], exact)
+    assert all(c <= max(1e-4, 3 * p) for c, p in zip(card, cpu)), \
+        (card, cpu)

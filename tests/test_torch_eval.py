@@ -267,8 +267,11 @@ def test_sweep_values_and_build_zs_equal_exsr(work):
 def test_main_refuses_what_it_cannot_run(work):
     base = ['--hr_dir', work['hr'], '--nb', '1', '--nf', '16', '--device',
             'cpu', '--out_dir', str(work['root'] / 'refused')]
-    with pytest.raises(NotImplementedError, match='KernelGAN'):
-        TApp.main(base + ['--kernel', 'estimated'])
+    # an estimated kernel runs now; the optimizer latent modes take the
+    # bicubic CEM only, as exsr's eval_sr asserts
+    with pytest.raises(ValueError, match='bicubic'):
+        TApp.main(base + ['--kernel', 'estimated', '--latent',
+                          'desired_im'])
     with pytest.raises(ValueError, match='latent'):
         TApp.main(base + ['--latent_channels', '0', '--latent',
                           'uniform_sweep'])

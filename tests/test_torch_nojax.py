@@ -34,12 +34,18 @@ def test_every_module_imports_with_jax_and_exsr_blocked():
               'apps.train_sr', 'utils.logging', 'ops.dct', 'jpeg.codec',
               'jpeg.jfif', 'native', 'native.jfif_native', 'models.dncnn',
               'train.decomp', 'apps.jpeg_session', 'apps.eval_jpeg',
-              'device'):
+              'device', 'train.decomp_chroma', 'apps.train_jpeg',
+              'kernelgan', 'kernelgan.kernelgan'):
         assert f'exsr_torch.{m}' in mods
     blocked = '; '.join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
     code = (f'import sys; {blocked}; import importlib; '
             f'[importlib.import_module(m) for m in {mods!r}]; '
             'import chip_smoke; '
+            # the estimated-kernel path of EditSession and eval_sr, run
+            'import numpy as np; '
+            'from exsr_torch.kernelgan.kernelgan import estimate_sr_kernel; '
+            'estimate_sr_kernel(np.random.default_rng(0).uniform('
+            "size=(80, 80, 3)).astype('float32'), 4, 1, 'cpu'); "
             f'assert not any(m in sys.modules and sys.modules[m] '
             f'for m in {FORBIDDEN!r}); print("ok")')
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,

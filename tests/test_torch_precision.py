@@ -195,3 +195,68 @@ def test_train_sr_steps(tf32_on, tmp_path):
         '--niter', '1', '--scale', '4', '--patch', '112', '--batch', '2',
         '--nb', '1', '--nf', '8', '--gc', '4', '--d_nb', '4', '--d_nf', '8',
         '--d_strides', '1', '--device', 'cpu']), backward=True)
+
+
+def _jpeg_batch(channels, seed):
+    rng = np.random.default_rng(seed)
+    return {'uncomp': torch.from_numpy((255 * rng.uniform(
+                size=(2, 32, 32, channels))).astype(np.float32)),
+            'qf': torch.tensor([10, 40], dtype=torch.int32)}
+
+
+@pytest.mark.parametrize('dual', [False, True])
+def test_decomp_steps(tf32_on, dual):
+    from exsr_torch.models.dncnn import (DnCNN, DnCNNConfig,
+                                         DnCNNDiscriminator)
+    from exsr_torch.train.decomp import DecompConfig, DecompTrainer
+    tr = DecompTrainer(DecompConfig(optimal_z_iters=2))
+    state = tr.init_state(
+        DnCNN(DnCNNConfig(n_channels=8, depth=3, num_latent_channels=64)),
+        DnCNNDiscriminator(n_channels=8, depth=3, expected_input_size=4),
+        0, 'cpu')
+    batch = _jpeg_batch(1, 4)
+    _recorded(lambda: tr.d_step(state, batch, dual=dual), backward=True)
+    _recorded(lambda: tr.g_step(state, batch, dual=dual), backward=True)
+
+
+def test_chroma_step(tf32_on):
+    from exsr_torch.models.dncnn import (DnCNN, DnCNNConfig,
+                                         DnCNNDiscriminator)
+    from exsr_torch.train.decomp import DecompConfig
+    from exsr_torch.train.decomp_chroma import ChromaDecompTrainer
+    tr = ChromaDecompTrainer(
+        DecompConfig(latent_channels=0, chroma_mode=True),
+        DnCNN(DnCNNConfig(n_channels=8, depth=3, num_latent_channels=8)))
+    state = tr.init_state(
+        DnCNN(DnCNNConfig(n_channels=8, depth=3, in_nc=384, out_nc=128,
+                          chroma_generator=True, block_size=8,
+                          num_latent_channels=0)),
+        DnCNNDiscriminator(n_channels=8, depth=3, expected_input_size=2,
+                           in_nc=384), 0, 'cpu')
+    _recorded(lambda: tr.step(state, _jpeg_batch(3, 5)), backward=True)
+
+
+def test_train_jpeg_main(tf32_on, tmp_path):
+    from exsr_torch.apps import train_jpeg
+    (tmp_path / 'imgs').mkdir()
+    Image.fromarray((np.random.default_rng(6).uniform(size=(32, 32, 3))
+                     * 255).astype(np.uint8)).save(tmp_path / 'imgs' / 'a.png')
+    base = ['--data_dir', str(tmp_path / 'imgs'), '--val_dir',
+            str(tmp_path / 'imgs'), '--val_freq', '1', '--patch', '32',
+            '--batch', '1', '--nf', '8', '--nb', '3', '--niter', '1',
+            '--device', 'cpu']
+    _recorded(lambda: train_jpeg.main(
+        base + ['--exp_dir', str(tmp_path / 'y')]), backward=True)
+    _recorded(lambda: train_jpeg.main(
+        base + ['--exp_dir', str(tmp_path / 'c'), '--chroma']),
+        backward=True)
+
+
+def test_kernelgan_estimate(tf32_on):
+    from exsr_torch.kernelgan.kernelgan import KernelGAN, KernelGANConfig
+    kg = KernelGAN(KernelGANConfig(max_iters=2, g_chan=8, d_chan=8,
+                                   d_n_layers=3), device='cpu')
+    img = np.random.default_rng(7).uniform(size=(72, 72, 3)) \
+        .astype(np.float32)
+    seen = _recorded(lambda: kg.estimate(img), backward=True)
+    assert 'mm' in seen       # the kernel's centre of mass

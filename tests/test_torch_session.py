@@ -258,8 +258,11 @@ def test_save_load_z_and_kernelgan(sessions, tmp_path):
     for _ in range(3):
         ts.undo()
     js.undo()
-    with pytest.raises(NotImplementedError, match='KernelGAN'):
-        ts.estimate_kernel()
+    # KernelGAN runs now, but its 64-pixel crops do not fit this 24 x 24
+    # LR image: exsr's estimate_kernel and the port's fail alike
+    for s in (ts, js):
+        with pytest.raises(ValueError):
+            s.estimate_kernel(max_iters=1)
 
 
 def test_estimate_periodicity_matches_exsr():
