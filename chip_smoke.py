@@ -130,12 +130,35 @@ Phases, one JSON line each:
    share, kernel quality (reported, not gated); its first iterations
    against the CPU; ``EditSession.estimate_kernel`` at full width against
    the same session on the CPU; and ``eval_sr --kernel estimated`` on a
-   128 x 128 LR image.  Phases 17-20 run with TF32 switched on.
+   128 x 128 LR image.  Phases 17-20 run with TF32 switched on;
+21. web_sr: the exploration server, ``exsr_torch.apps.web.main``, over
+   HTTP in SR mode at full width (nb 23, nf 64, gc 32, nz 3, x4, fp32), on
+   a seeded plain-ESRGAN ``.pth`` in the reference layout converted by
+   ``scripts convert_torch_g`` (Z 3, and Z 0 for the ``--esrgan_checkpoint``
+   view): open a 256 x 256 HR image, views, a region, uniform Z, a
+   ``max_STD`` edit, a digit (a seeded SVHN ``.pth``), the blurry and
+   bicubic kernels, undo, state; ms per request (the round trip, the
+   handler's share, the rest: HTTP and JSON; a view's PNG encoding) and
+   each kernel's launches per request; the served SR's CEM consistency,
+   the served view equal to ``EditSession``'s own, the SVHN classifier on
+   the card against the CPU, the converted generator at Z = 0 against the
+   Z-less conversion, and the edit step's kernels at the request's crop
+   against their plain versions;
+22. web_jpeg: the server in JPEG mode at ``eval_jpeg``'s width on a
+   512 x 512 colour JPEG at QF 10 opened by its coefficients: an edit, a
+   digit, the input/out/rgb views; ms per request, bin consistency after
+   each call, no hand-written kernel launched;
+23. scripts: ``official_parity`` at full width on a seeded flagship-shaped
+   explorable ``.pth`` and three 512 x 512 PNGs (69 ``stage4`` a forward,
+   every summary key finite), ``export_g`` on phase 13's checkpoint,
+   ``pack`` and a ``PackedLRHRDataset`` batch.  Phases 21-22 run with TF32
+   switched on.
 
 Phase 3 also checks and times ``sepfilter_taps``, the CEM filter's adjoint
 kernel, at the edit shape and at the main path's batch-16 shapes; the
 kernels line gives each CEM kernel's training launches and times beside
-its serving ones (``train``).
+its serving ones (``train``) and the server's launches per request and
+times at its edit's crop (``web``).
 
 Any failed check raises and the script exits non-zero.  The last lines are
 the kernels summary, the ``nvidia-smi`` name and power limit, and
@@ -204,6 +227,11 @@ KG_IMAGE = 'artifacts/convergence_r3/face_SR.png'
 # (eval_sr's estimation at 300 iterations: at 3000 it took 82 s on an H100
 # 80GB HBM3 at 700 W, which put the whole script past 600 s)
 KG_CHECK_ITERS, KG_EVAL_LR, KG_EVAL_ITERS = 20, 128, 300
+# the exploration server: the HR image it opens, the steps of an edit and
+# of a digit request
+WEB_HR, WEB_ITERS, WEB_DIGIT_ITERS = 256, 10, 5
+# scripts official_parity: its images and their HR size
+PARITY_IMAGES, PARITY_HR = 3, 512
 
 
 def emit(phase: str, **fields) -> None:
@@ -1457,16 +1485,18 @@ def _worst(a: dict, b: dict, n: int = 3) -> dict:
     return {k: gaps[k] for k in sorted(gaps, key=gaps.get)[-n:]}
 
 
-def phase_train_cli(device, name):
+def phase_train_cli(device, name, keep):
     """The training CLI at full width on the card: an ``--init_phase`` run
     (G steps), then a GAN-phase ``--resume`` with the flagship options (its
     controller runs D steps and holds G back), a validation pass and the
     checkpoints; ``logs.npz``, the resumed step and ``eval_sr``'s loading
-    of the result."""
+    of the result.  The last checkpoint is copied into the directory
+    ``keep`` (for ``scripts export_g``)."""
     import contextlib
     import io
     import math
     import os
+    import shutil
     import tempfile
     import numpy as np
     import torch
@@ -1532,6 +1562,8 @@ def phase_train_cli(device, name):
               f'train_cli D losses logged at steps {d_steps}')
         check(CheckpointManager(f'{exp}/ckpt').latest_step() == last,
               'train_cli last checkpoint')
+        os.makedirs(keep)
+        shutil.copy(f'{exp}/ckpt/{last}.pt', keep)
         _, fwd = eval_sr.build_model(SCALE, checkpoint=f'{exp}/ckpt')
         lr = np.random.default_rng(41).uniform(
             size=(1, 32, 32, 3)).astype(np.float32)
@@ -2646,6 +2678,441 @@ def phase_kernelgan(device, name):
          time_s=per_image[0]['time_s'], wall_s=wall, launches=launches,
          summary=summary, phase_s=time.perf_counter() - t_phase)
 
+def _reference_rrdb_state(net) -> dict:
+    """A port ``RRDBNet``'s weights in the reference ESRGAN checkpoint's
+    layout (``model.*`` keys, DataParallel's ``module.`` prefix, under
+    ``'state_dict'``): what ``scripts convert_torch_g`` reads."""
+    nb = len(net.trunk)
+    names = {'fea_conv': 'model.0', 'trunk_conv': f'model.1.sub.{nb}',
+             'upconv0': 'model.3', 'upconv1': 'model.6',
+             'hr_conv0': 'model.8', 'hr_conv1': 'model.10'}
+    names.update({f'trunk.{i}.rdb{r}.conv{c}':
+                  f'model.1.sub.{i}.RDB{r}.conv{c + 1}.0'
+                  for i in range(nb) for r in (1, 2, 3) for c in range(5)})
+    state = {}
+    for key, value in net.state_dict().items():
+        mod, leaf = key.rsplit('.', 1)
+        state[f'module.{names[mod]}.{leaf}'] = value.clone()
+    return {'state_dict': state}
+
+
+def _reference_svhn_state(seed) -> dict:
+    """Seeded SVHN classifier weights in the reference ``.pth`` layout
+    (``_hidden{i}.0/1``, ``_hidden9.0``, ``_hidden10.0``, the heads), the
+    running statistics drawn away from (0, 1)."""
+    import torch
+    from exsr_torch.models.classifiers import SVHN_HEADS, SVHNClassifier
+    names = {f'conv{i}': f'_hidden{i + 1}.0' for i in range(8)}
+    names.update({f'bn{i}': f'_hidden{i + 1}.1' for i in range(8)})
+    names.update({'fc9': '_hidden9.0', 'fc10': '_hidden10.0'})
+    names.update({h: f'_{h}.0' for h in SVHN_HEADS})
+    gen = torch.Generator().manual_seed(seed + 1)
+    state = {}
+    for key, value in SVHNClassifier(seed=seed).state_dict().items():
+        mod, leaf = key.rsplit('.', 1)
+        if leaf == 'running_mean':
+            value = 0.2 * torch.rand(value.shape, generator=gen) - 0.1
+        elif leaf == 'running_var':
+            value = torch.rand(value.shape, generator=gen) + 0.5
+        state[f'{names[mod]}.{leaf}'] = value
+    return state
+
+
+@contextlib.contextmanager
+def _web_server(argv):
+    """``exsr_torch.apps.web.main(argv)`` serving on a free local port from
+    a thread; yields ``(server, base URL, handler)``, where
+    ``handler['ms']`` is the last request's time inside ``dispatch`` (its
+    session work and PNG encoding, synchronized).  Shut down after."""
+    import io
+    import threading
+    import torch
+    from exsr_torch.apps import web
+    with contextlib.redirect_stdout(io.StringIO()):
+        srv = web.main(argv + ['--port', '0'], serve=False)
+    inner = srv.api.dispatch
+    handler = {}
+
+    def timed(name, req):
+        t0 = time.perf_counter()
+        try:
+            return inner(name, req)
+        finally:
+            torch.cuda.synchronize()
+            handler['ms'] = 1e3 * (time.perf_counter() - t0)
+    srv.api.dispatch = timed
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield srv, f'http://127.0.0.1:{srv.server_address[1]}', handler
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+
+
+def _web_request(base, handler, name, body, records, tag=None):
+    """One request over HTTP with every launch count zeroed just before
+    it and read just after; its record (host round trip, the handler's
+    time inside it, the rest: HTTP and JSON, the response's bytes, the
+    launches) goes into ``records[tag]``.  Returns the response."""
+    import urllib.request
+    import torch
+    req = urllib.request.Request(
+        f'{base}/api/{name}', data=json.dumps(body).encode(),
+        headers={'Content-Type': 'application/json'})
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        raw = r.read()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_launches()
+    out = json.loads(raw)
+    check('error' not in out, f'web {name}: {out.get("error")}')
+    records[tag or name] = dict(ms=ms, handler_ms=handler['ms'],
+                                http_json_ms=ms - handler['ms'],
+                                response_bytes=len(raw), launches=launches)
+    return out
+
+
+def _png_part(sess_image):
+    """ms of a view's PNG and base64 encoding alone."""
+    import base64
+    from exsr_torch.apps.web import _png_bytes
+    t0 = time.perf_counter()
+    base64.b64encode(_png_bytes(sess_image)).decode()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def phase_web_sr(device, name, tmp):
+    """The exploration server in SR mode at full width: a seeded plain
+    ESRGAN ``.pth`` in the reference layout through ``scripts
+    convert_torch_g`` (Z 3 and Z 0), ``web.main`` on it over HTTP with
+    TF32 switched on, each request timed and its launches counted."""
+    import base64
+    import io
+    import numpy as np
+    import torch
+    from PIL import Image
+    from exsr_torch.apps import scripts
+    from exsr_torch.apps.eval_sr import load_generator_params
+    from exsr_torch.apps.session import EditSession
+    from exsr_torch.apps.web import _png_bytes
+    from exsr_torch.device import full_fp32
+    from exsr_torch.models.classifiers import (SVHNClassifier,
+                                               load_svhn_torch_state_dict)
+    from exsr_torch.models.rrdb import RRDBNet
+    t_phase = time.perf_counter()
+    rec = {}
+    pth, svhn = f'{tmp}/esrgan.pth', f'{tmp}/svhn.pth'
+    torch.save(_reference_rrdb_state(RRDBNet(
+        nf=64, nb=23, gc=32, upscale=SCALE, latent_channels=0, seed=11)),
+        pth)
+    torch.save(_reference_svhn_state(13), svhn)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        for nz, out in ((3, 'g'), (0, 'esrgan')):
+            scripts.main(['convert_torch_g', '--pth', pth, '--out',
+                          f'{tmp}/{out}', '--latent_channels', str(nz)])
+    rec['convert_s'] = time.perf_counter() - t0
+
+    # the converted generator at Z = 0 against the Z-less conversion (the
+    # esrgan view's net), before the CEM, fp32
+    nets = {}
+    for nz, out in ((3, 'g'), (0, 'esrgan')):
+        nets[nz] = RRDBNet(nf=64, nb=23, gc=32, upscale=SCALE,
+                           latent_channels=nz).to(device)
+        nets[nz].load_state_dict(load_generator_params(f'{tmp}/{out}'))
+    gen = torch.Generator(device=device).manual_seed(43)
+    lr = torch.rand(1, 64, 64, 3, generator=gen, device=device)
+    with torch.no_grad(), full_fp32():
+        a = nets[3](lr, torch.zeros(1, 256, 256, 3, device=device))
+        b = nets[0](lr, None)
+    rec['z0_vs_esrgan_max_abs'] = (a - b).abs().max().item()
+    check(rec['z0_vs_esrgan_max_abs'] <= 1e-5,
+          f'converted Z=0 vs Z-less {rec["z0_vs_esrgan_max_abs"]}')
+    del nets, a, b
+
+    # the SVHN classifier of the digit tool, card against CPU
+    x = torch.rand(8, 54, 54, 3, generator=gen, device=device) * 2 - 1
+    heads = []
+    for dev in (device, torch.device('cpu')):
+        clf = SVHNClassifier().to(dev)
+        clf.load_state_dict(load_svhn_torch_state_dict(svhn))
+        with torch.no_grad(), full_fp32():
+            heads.append([h.cpu() for h in clf(x.to(dev))])
+    largest = max(h.abs().max().item() for h in heads[1])
+    rec['svhn_card_vs_cpu'] = max((p - q).abs().max().item() for p, q in
+                                  zip(*heads)) / largest
+    check(rec['svhn_card_vs_cpu'] <= 1e-4,
+          f'SVHN card vs CPU {rec["svhn_card_vs_cpu"]} of the largest logit')
+    del clf, heads
+
+    rng = np.random.default_rng(47)
+    yy, xx = np.mgrid[:WEB_HR, :WEB_HR] / WEB_HR
+    img = 0.5 + 0.25 * np.stack([np.sin(2 * np.pi * (f * yy + g * xx))
+                                 for f, g in rng.uniform(1, 6, (3, 2))], -1)
+    img8 = (np.clip(img + 0.05 * rng.standard_normal(img.shape), 0, 1)
+            * 255).round().astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img8).save(buf, format='PNG')
+    png64 = base64.b64encode(buf.getvalue()).decode()
+    hr = img8.astype(np.float32) / 255.0
+    reqs = {}
+    y0 = WEB_HR // 2 - 32
+    region = [y0, y0, y0 + 64, y0 + 64]
+    deterministic = torch.backends.cudnn.deterministic
+    with tf32_on(), _web_server(['--checkpoint', f'{tmp}/g',
+                                 '--esrgan_checkpoint', f'{tmp}/esrgan'
+                                 ]) as (srv, base, handler):
+        sess = srv.api.session
+        check(sess._device.type == 'cuda', f'web session on {sess._device}')
+        # cuDNN's deterministic algorithms, so that the served view and
+        # the session's own are bit-comparable
+        torch.backends.cudnn.deterministic = True
+        try:
+            out = _web_request(base, handler, 'open',
+                               {'image': png64, 'is_hr': True}, reqs)
+            check(out['sr_shape'] == [1, WEB_HR, WEB_HR, 3],
+                  f'web open {out}')
+            view = _web_request(base, handler, 'view', {'which': 'sr'},
+                                reqs, 'view_sr')
+            reqs['view_sr']['png_ms'] = _png_part(sess.sr[0])
+            ref = EditSession(scale=SCALE, nb=23, device=device)
+            ref.load_params(load_generator_params(f'{tmp}/g'))
+            ref.open_image(hr, is_hr=True)
+            rec['open_png_equals_session'] = \
+                base64.b64decode(view['png']) == _png_bytes(ref.sr[0])
+            check(rec['open_png_equals_session'],
+                  'served view differs from EditSession\'s own')
+            del ref
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        m = sess.cem.invalidity_margins_lr
+        with torch.no_grad(), full_fp32():
+            lr_t = sess._t(sess.lr_image)
+            raw = sess._wrapped(sess.eff_params, lr_t, sess._t(sess.cur_z),
+                                m, pre_pad=True)
+            rec['consistency_max'] = (sess.filters.downscale(raw) - lr_t)[
+                :, m:-m, m:-m].abs().max().item()
+            served = sess._t(sess.sr)
+            rec['served_consistency_max'] = (
+                sess.filters.downscale(served) - lr_t)[
+                :, m:-m, m:-m].abs().max().item()
+            rec['served_clipped_px'] = int(((raw < 0) | (raw > 1))
+                                           .any(-1).sum())
+        check(rec['consistency_max'] < 5e-6,
+              f'served SR consistency {rec["consistency_max"]}')
+        _web_request(base, handler, 'view', {'which': 'esrgan'}, reqs,
+                     'view_esrgan')
+        _web_request(base, handler, 'region', {'rect': region}, reqs)
+        _web_request(base, handler, 'uniform_z',
+                     {'values': [0.5, -0.3, 0.2]}, reqs)
+        body = {'objective': 'max_STD', 'max_iters': WEB_ITERS,
+                'time_budget_s': 600.0}
+        _web_request(base, handler, 'optimize', body, reqs, 'optimize_cold')
+        _web_request(base, handler, 'undo', {}, reqs, 'undo_cold')
+        out = _web_request(base, handler, 'optimize', body, reqs)
+        steps = 5 * int(np.ceil(WEB_ITERS / 5))
+        check(all(map(np.isfinite, out['losses'])) and
+              len(out['losses']) == min(10, steps), f'web optimize {out}')
+        got = reqs['optimize']['launches']
+        check(all(got[k] > 0 for k in ('sepfilter_edge', 'sepfilter_down',
+                                        'sepfilter_up', 'stage4',
+                                        'sepfilter_taps')),
+              f'web optimize launches {got}')
+        # an initial forward for the objective, the steps, the view
+        rec['optimize_launches_predicted'] = per_forward(
+            steps + 2, stage4=69, backwards=steps)
+        rec['optimize_steps'] = steps
+        y0c, y1c, x0c, x1c = sess._crop_box()
+        rec['crop_lr'] = int(y1c - y0c)
+        with full_fp32():   # the plain versions' convs in full fp32
+            rec['kernels'] = edit_kernel_checks(sess.filters, gen, device,
+                                                rec['crop_lr'], None, True)
+        _web_request(base, handler, 'view', {'which': 'sr'}, reqs,
+                     'view_after_optimize')
+        dig = {'digit': 3, 'max_iters': WEB_DIGIT_ITERS, 'weights': svhn,
+               'time_budget_s': 600.0}
+        _web_request(base, handler, 'digit', dig, reqs, 'digit_cold')
+        _web_request(base, handler, 'undo', {}, reqs, 'undo_digit')
+        out = _web_request(base, handler, 'digit', dig, reqs)
+        check(np.isfinite(out['final_loss']), f'web digit {out}')
+        out = _web_request(base, handler, 'kernel',
+                           {'kind': 'blurry_cubic_1.0'}, reqs,
+                           'kernel_blurry')
+        check(out['margins_lr'] > 0, f'web kernel {out}')
+        _web_request(base, handler, 'kernel', {'kind': 'bicubic'}, reqs,
+                     'kernel_bicubic')
+        _web_request(base, handler, 'undo', {}, reqs)
+        state = _web_request(base, handler, 'state', {}, reqs)
+        check(state['has_image'] and state['can_redo'], f'web state {state}')
+    rec['requests'] = reqs
+    rec['phase_s'] = time.perf_counter() - t_phase
+    emit('web_sr', device=name, hr=WEB_HR, nb=23, nf=64, gc=32, nz=3,
+         trunk='fp32', region=region, **rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_web_jpeg(device, name, jpeg_bytes, tmp):
+    """The exploration server in JPEG mode at ``eval_jpeg``'s width (nf
+    320, nb 10, 64 latent channels) with TF32 switched on: a real colour
+    JPEG (QF 10, 512 x 512) opened by its coefficients, an edit, a digit
+    and the three views, bin consistency after each call."""
+    import base64
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    reqs, bins = {}, {}
+    body = {'objective': 'max_STD', 'max_iters': WEB_ITERS}
+    with tf32_on(), _web_server(['--mode', 'jpeg']) as (srv, base, handler):
+        sess = srv.api.session
+        check(sess._device.type == 'cuda', f'web session on {sess._device}')
+
+        def request(name, req, tag=None):
+            """A request, then the bins checked at the session's Z."""
+            out = _web_request(base, handler, name, req, reqs, tag)
+            bins[tag or name] = _bin_check(sess, f'web jpeg {tag or name}')
+            return out
+        out = request('open', {'image': base64.b64encode(jpeg_bytes)
+                               .decode()})
+        check(out['source'] == 'jpeg-coefficients'
+              and out['out_shape'] == [1, JPEG_HW, JPEG_HW, 1],
+              f'web jpeg open {out}')
+        for which in ('input', 'out', 'rgb'):
+            request('view', {'which': which}, f'view_{which}')
+        reqs['view_rgb']['png_ms'] = _png_part(sess.compose_rgb())
+        y0 = JPEG_HW // 2 - 64
+        request('region', {'rect': [y0, y0, y0 + 128, y0 + 128]})
+        request('optimize', body, 'optimize_cold')
+        request('undo', {}, 'undo_cold')
+        out = request('optimize', body)
+        check(len(out['losses']) == WEB_ITERS
+              and all(map(np.isfinite, out['losses'])), f'web jpeg {out}')
+        dig = {'digit': 3, 'max_iters': WEB_DIGIT_ITERS,
+               'weights': f'{tmp}/svhn.pth'}
+        request('digit', dig, 'digit_cold')
+        request('undo', {}, 'undo_digit')
+        out = request('digit', dig)
+        check(np.isfinite(out['final_loss']), f'web jpeg digit {out}')
+        for which in ('input', 'out', 'rgb'):
+            request('view', {'which': which}, f'view_{which}_after')
+    launched = {k: v for r in reqs.values()
+                for k, v in r['launches'].items() if v}
+    check(not launched, f'web jpeg launched {launched}: no hand-written '
+                        'kernel lies on the JPEG path')
+    emit('web_jpeg', device=name, hw=JPEG_HW, nf=JPEG_NF, nb=JPEG_NB,
+         latent_channels=64, qf=float(sess.qf), tf32_flags_on=True,
+         bin_consistency=bins, bin_tol=0.5, requests=reqs,
+         phase_s=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+
+
+def phase_scripts(device, name, tmp, train_ckpt):
+    """``scripts`` at full width: ``official_parity`` on a seeded
+    flagship-shaped explorable ``.pth`` and three 512 x 512 PNGs (69
+    ``stage4`` a forward), ``export_g`` on phase 13's checkpoint, ``pack``
+    and a ``PackedLRHRDataset`` batch."""
+    import io
+    import math
+    import os
+    import numpy as np
+    import torch
+    from exsr_torch.apps import eval_sr, scripts
+    from exsr_torch.data.datasets import DataLoader, LRHRDataset
+    from exsr_torch.data.packed import PackedLRHRDataset
+    from exsr_torch.models.rrdb import RRDBNet
+    from exsr_torch.train.checkpoints import CheckpointManager
+    t_phase = time.perf_counter()
+    rec = {}
+    hr_dir = f'{tmp}/parity_hr'
+    os.makedirs(hr_dir)
+    _write_pngs(hr_dir, PARITY_IMAGES, PARITY_HR, seed=53)
+    pth = f'{tmp}/explorable.pth'
+    torch.save(_reference_rrdb_state(RRDBNet(
+        nf=64, nb=23, gc=32, upscale=SCALE, latent_channels=3, seed=17)),
+        pth)
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = scripts.main(['official_parity', '--pth', pth, '--hr_dir',
+                                hr_dir, '--out', f'{tmp}/parity'])
+    rec['official_parity_s'] = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches == per_forward(PARITY_IMAGES, stage4=69),
+          f'official_parity launches {launches}')
+    check(summary['num_images'] == PARITY_IMAGES
+          and all(math.isfinite(v) for v in summary.values()),
+          f'official_parity summary {summary}')
+    rec.update(official_parity=summary, official_parity_launches=launches)
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        scripts.main(['export_g', '--train_ckpt', train_ckpt, '--out',
+                      f'{tmp}/exported'])
+    rec['export_g_s'] = time.perf_counter() - t0
+    src = CheckpointManager(train_ckpt)
+    dst = CheckpointManager(f'{tmp}/exported')
+    got, want = dst.restore(), src.restore_raw()['g_params']
+    check(dst.all_steps() == [src.latest_step()] and set(got) == {'g_params'}
+          and all(torch.equal(got['g_params'][k], want[k]) for k in want),
+          'export_g did not copy the generator at its step')
+    _, fwd = eval_sr.build_model(SCALE, checkpoint=f'{tmp}/exported')
+    sr = fwd(np.random.default_rng(59).uniform(size=(1, 32, 32, 3))
+             .astype(np.float32), np.zeros((1, 128, 128, 3), np.float32))
+    check(bool(torch.isfinite(sr).all()), 'eval_sr on the exported G')
+    rec['export_g_step'] = src.latest_step()
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        n = scripts.main(['pack', '--input_dir', hr_dir, '--out',
+                          f'{tmp}/hr.pack'])
+    rec['pack_s'] = time.perf_counter() - t0
+    rec['pack_bytes'] = os.path.getsize(f'{tmp}/hr.pack')
+    ds = PackedLRHRDataset(f'{tmp}/hr.pack', SCALE, patch_size=128)
+    (batch,) = list(DataLoader(ds, batch_size=PARITY_IMAGES,
+                               num_threads=2).epoch(0))
+    check(n == PARITY_IMAGES and batch['lr'].shape == (PARITY_IMAGES, 32,
+                                                       32, 3)
+          and batch['hr'].shape == (PARITY_IMAGES, 128, 128, 3),
+          f'packed batch {batch["lr"].shape} {batch["hr"].shape}')
+    a = PackedLRHRDataset(f'{tmp}/hr.pack', SCALE, train=False)[0]
+    b = LRHRDataset(hr_root=hr_dir, scale=SCALE, train=False)[0]
+    rec['packed_vs_folder_max_abs'] = max(
+        float(np.abs(a[k] - b[k]).max()) for k in ('lr', 'hr'))
+    check(rec['packed_vs_folder_max_abs'] <= 1e-6,
+          f'packed vs folder {rec["packed_vs_folder_max_abs"]}')
+    rec['phase_s'] = time.perf_counter() - t_phase
+    emit('scripts', device=name, images=PARITY_IMAGES, hr=PARITY_HR,
+         nb=23, nf=64, gc=32, nz=3, **rec)
+
+
+def web_rows(web) -> dict:
+    """The server's fields of each kernel's row of the kernels line: its
+    launches per SR request (those that launch it) and, for the kernels
+    of the edit step, its check and time at the optimize request's crop
+    (the adjoints' three launches of one backward summed)."""
+    kern = web['kernels']
+    taps = [r for k, r in kern.items() if k.startswith('sepfilter_taps[')]
+    at = {'sepfilter_edge': [kern['sepfilter_edge[lr]']],
+          'sepfilter_down': [kern['sepfilter_down']],
+          'sepfilter_up': [kern['sepfilter_up[combine]']],
+          'stage4': [kern['stage4']], 'sepfilter_taps': taps, 'rdb': []}
+    rows = {}
+    for counter, recs in at.items():
+        row = {'launches_per_request': {
+            tag: r['launches'][counter] for tag, r in web['requests'].items()
+            if r['launches'][counter]}}
+        if recs:
+            row.update(crop_lr=web['crop_lr'],
+                       max_abs_err=max(r['max_abs_err'] for r in recs),
+                       ms=sum(r['ms'] for r in recs))
+        rows[counter] = row
+    return rows
+
+
 def train_rows(records, kern, taps) -> dict:
     """The training path's fields of each CEM kernel's row of the kernels
     line: launches per step kind and per iteration (D then G step), and
@@ -2698,11 +3165,12 @@ def taps_row(kern, edit_runs):
 
 
 def main() -> int:
+    import shutil
+    import tempfile
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: CUDA is not available', file=sys.stderr)
         return 1
-    from exsr_torch.cem.cem import CEM, CEMConf
     from exsr_torch.ops.kernels import build
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2725,6 +3193,18 @@ def main() -> int:
                 for ln in v['ptxas'].splitlines()
                 if 'registers' in ln or 'spill' in ln or 'C75' in ln])
 
+    # phase 13's checkpoint and the server's and scripts' files
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_')
+    try:
+        return _phases(device, name, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phases(device, name, smi, tmp) -> int:
+    """Phases 3-23 and the last lines; ``tmp`` is a scratch directory."""
+    import torch
+    from exsr_torch.cem.cem import CEM, CEMConf
     cem = CEM.create(CEMConf(scale_factor=SCALE))
     filt = cem.device_filters(3, device=device)
     kern = phase_kernels(filt, device)
@@ -2740,7 +3220,7 @@ def main() -> int:
     train_records, train_kern, train_taps, d_state = phase_train(device,
                                                                  name)
     phase_train_reference(device, name, d_state)
-    phase_train_cli(device, name)
+    phase_train_cli(device, name, f'{tmp}/train_ckpt')
     jpeg_bytes = phase_jpeg_codec(device, name)
     phase_jpeg_edit(device, name, jpeg_bytes)
     phase_jpeg_eval_cli(device, name)
@@ -2748,6 +3228,9 @@ def main() -> int:
     phase_train_jpeg_reference(device, name)
     phase_train_jpeg_cli(device, name)
     phase_kernelgan(device, name)
+    web = web_rows(phase_web_sr(device, name, tmp))
+    phase_web_jpeg(device, name, jpeg_bytes, tmp)
+    phase_scripts(device, name, tmp, f'{tmp}/train_ckpt')
     train = train_rows(train_records, train_kern, train_taps)
 
     # launches: the total over the forwards of the path that runs the
@@ -2769,6 +3252,7 @@ def main() -> int:
     summary = [
         row(f'sepfilter_{k}', key, launches, forwards, **sep, **extra,
             graph_ms=kern[key]['graph_ms'], train=train[f'sepfilter_{k}'],
+            web=web[f'sepfilter_{k}'],
             **{f'even_taps_{f}': even[EVEN_ROW[k]][f] for f in (
                 'taps', 'shape', 'max_abs_err', 'ms', 'graph_ms',
                 'bound_ms')})
@@ -2783,12 +3267,15 @@ def main() -> int:
         row('stage4', 'stage4_bf16', launches, forwards,
             source='exsr_torch/csrc/stage4.cu',
             replaces='exsr/ops/pallas/stage4.py:82', path='main',
-            library_chain_ms=kern['stage4_bf16']['library_chain_ms']),
+            library_chain_ms=kern['stage4_bf16']['library_chain_ms'],
+            web=web['stage4']),
         row('rdb', 'rdb_bf16', fused_launches, fused_forwards,
             source='exsr_torch/csrc/rdb.cu',
             replaces='exsr/ops/pallas/rrdb_block.py:145', path='fused',
-            library_chain_ms=kern['rdb_bf16']['library_chain_ms']),
+            library_chain_ms=kern['rdb_bf16']['library_chain_ms'],
+            web=web['rdb']),
         dict(taps_row(kern, edit_runs), train=train['sepfilter_taps'],
+             web=web['sepfilter_taps'],
              even_taps_max_rel_err=max(r['max_rel_err']
                                        for r in even_taps.values()),
              even_taps_ms=sum(r['ms'] for r in even_taps.values()),

@@ -184,6 +184,7 @@ class JPEGEditSession:
         with open(path, 'rb') as f:
             return self.open_jpeg_bytes(f.read(), native)
 
+    @full_fp32()
     def open_jpeg_bytes(self, data: bytes, native: bool | None = None):
         """Byte-string variant of :meth:`open_jpeg_file`.  A colour file's
         decoded chroma planes are kept, to compose the edited Y to colour

@@ -1,12 +1,13 @@
-"""The plain SR generators, without Z and without the CEM, as
-``nn.Module``s: :class:`MSRResNet` and :class:`SRResNet`.
+"""The SVHN digit classifier and the plain SR generators, without Z and
+without the CEM, as ``nn.Module``s: :class:`SVHNClassifier`,
+:class:`MSRResNet` and :class:`SRResNet`.
 
-Counterpart of ``exsr/models/classifiers.py:87-162``.  Both take and return
-NHWC tensors; inside, the convolutions run on NCHW views in
-``channels_last`` memory.  Module names are those of ``exsr``'s flax
-parameters (``conv_first``, ``rb{i}_conv1``, ...), so
-:func:`exsr_torch.models.convert.from_exsr_plain_params` maps one tree onto
-the other by name.  ``SVHNClassifier`` is not ported yet.
+Counterpart of ``exsr/models/classifiers.py``.  All take NHWC tensors;
+inside, the convolutions run on NCHW views in ``channels_last`` memory.
+Module names are those of ``exsr``'s flax parameters (``conv0``, ``bn0``,
+``fc9``, ``conv_first``, ``rb{i}_conv1``, ...), so the bridges of
+:mod:`exsr_torch.models.convert` map one tree onto the other by name.
+:func:`load_svhn_torch_state_dict` converts the reference's SVHN ``.pth``.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from exsr_torch.models.discriminators import BatchNorm, lecun_normal_
 from exsr_torch.models.rrdb import INIT_SCALE, Conv3x3
 from exsr_torch.ops.filters import (bilinear_resize, nearest_upsample,
                                     to_nchw, to_nhwc)
@@ -35,6 +37,74 @@ def _init_(module: nn.Module, scaled: tuple[str, ...], seed: int) -> None:
                 m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
                                * std)
                 m.bias.zero_()
+
+
+SVHN_FEATURES = (48, 64, 128, 160, 192, 192, 192, 192)
+SVHN_HEADS = ('digit_length',) + tuple(f'digit{i}' for i in range(1, 6))
+
+
+class SVHNClassifier(nn.Module):
+    """The multi-digit SVHN classifier of the 'digit' objective:
+    ``forward(x)`` takes ``[N, 54, 54, 3]`` images in [-1, 1] and returns
+    the six heads ``(length logits [N, 7], digit1..digit5 logits [N,
+    11])``.
+
+    Eight stages of a 5 x 5 conv, batch norm by its running statistics
+    (eval mode, eps 1e-5), ReLU and a 2 x 2 max-pool with torch's padding
+    1 (padded with -inf), stride 2 on even stages and 1 on odd ones: 54 ->
+    28 -> 29 -> 15 -> 16 -> 9 -> 10 -> 6 -> 7, so 7 x 7 x 192; then
+    the NCHW flatten (the reference's order), ``fc9`` and ``fc10`` at 3072
+    with ReLU, and the heads.  Fresh weights are flax's defaults
+    (LeCun-normal, zero biases, unit scale) from a generator seeded with
+    ``seed``."""
+
+    def __init__(self, seed: int = 0):
+        super().__init__()
+        c = 3
+        for i, f in enumerate(SVHN_FEATURES):
+            setattr(self, f'conv{i}', nn.Conv2d(c, f, 5, padding=2))
+            setattr(self, f'bn{i}', BatchNorm(f, momentum=0.9, eps=1e-5))
+            c = f
+        self.fc9 = nn.Linear(192 * 7 * 7, 3072)
+        self.fc10 = nn.Linear(3072, 3072)
+        for name in SVHN_HEADS:
+            setattr(self, name, nn.Linear(3072, 7 if name ==
+                                          'digit_length' else 11))
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, (nn.Conv2d, nn.Linear)):
+                    lecun_normal_(m.weight, gen)
+                    m.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> tuple:
+        x = to_nchw(x)
+        for i in range(len(SVHN_FEATURES)):
+            x = getattr(self, f'conv{i}')(x)
+            x = F.relu(getattr(self, f'bn{i}')(x, batch_stats=False))
+            x = F.max_pool2d(x, 2, stride=2 if i % 2 == 0 else 1,
+                             padding=1)
+        x = x.reshape(x.shape[0], -1)
+        x = F.relu(self.fc10(F.relu(self.fc9(x))))
+        return tuple(getattr(self, name)(x) for name in SVHN_HEADS)
+
+
+def load_svhn_torch_state_dict(path: str) -> dict:
+    """The reference's SVHN ``.pth`` (``_hidden{1..8}.0`` conv,
+    ``_hidden{1..8}.1`` batch norm, ``_hidden9.0``, ``_hidden10.0``,
+    ``_digit_length.0``, ``_digit{1..5}.0``) -> the state dict of
+    :class:`SVHNClassifier`."""
+    raw = torch.load(path, map_location='cpu', weights_only=True)
+    names = {f'_hidden{i + 1}.0': f'conv{i}' for i in range(8)}
+    names.update({f'_hidden{i + 1}.1': f'bn{i}' for i in range(8)})
+    names.update({'_hidden9.0': 'fc9', '_hidden10.0': 'fc10'})
+    names.update({f'_{h}.0': h for h in SVHN_HEADS})
+    out = {}
+    for key, value in raw.items():
+        prefix, leaf = key.rsplit('.', 1)
+        if leaf != 'num_batches_tracked':
+            out[f'{names[prefix]}.{leaf}'] = value.float()
+    return out
 
 
 def _up_stages(upscale: int) -> tuple[int, int]:

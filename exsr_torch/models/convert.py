@@ -5,7 +5,17 @@ discriminators of the SR trainer (:func:`d_from_exsr_vars`), and the
 explorable-JPEG DnCNN generator and discriminator
 (:func:`dncnn_from_exsr_vars`, :func:`dncnn_d_from_exsr_vars`), and
 KernelGAN's generator and critic (:func:`kernelgan_g_from_exsr_vars`,
-:func:`kernelgan_d_from_exsr_vars`).
+:func:`kernelgan_d_from_exsr_vars`), and the SVHN digit classifier
+(:func:`svhn_from_exsr_vars`).
+
+The reference's own torch checkpoints (``.pth``) convert straight to the
+port's state dicts: :func:`load_torch_checkpoint` reads one,
+:func:`convert_esrgan_rrdb` maps a plain ESRGAN or a trained explorable
+RRDB generator onto :class:`~exsr_torch.models.rrdb.RRDBNet` (zero Z input
+channels prepended to every conv that takes Z when the checkpoint has
+none), :func:`convert_msrresnet` maps an ``MSRResNet``, and
+:func:`align_params_to` checks a converted state dict against a module
+and loads it.
 
 The caller hands over ``exsr``'s params as a nested dict of numpy arrays
 (``jax.tree.map(np.asarray, params)``, or
@@ -21,6 +31,8 @@ do.  The discriminators' ``Dense`` kernels go from ``[in, out]`` to
 rows keep their order.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -53,7 +65,6 @@ def from_exsr_params(tree) -> dict:
                     stacked[f'rdb{r}'][f'conv{c}']['Conv_0'], i)
     return {f'{name}.{k}': v for name, entry in convs.items()
             for k, v in entry.items()}
-
 
 
 def from_exsr_flat_params(tree) -> dict:
@@ -175,3 +186,157 @@ def kernelgan_d_from_exsr_vars(variables) -> dict:
     for name, entry in (variables.get('spectral') or {}).items():
         out[f'{name}.u'] = torch.from_numpy(np.array(entry['u']))
     return out
+
+
+def svhn_from_exsr_vars(variables) -> dict:
+    """``exsr``'s ``SVHNClassifier`` variables (``params`` and
+    ``batch_stats``, numpy trees) -> the state dict of
+    :class:`exsr_torch.models.classifiers.SVHNClassifier`."""
+    stats = variables.get('batch_stats') or {}
+    out = {}
+    for name, entry in variables['params'].items():
+        if name.startswith('conv'):
+            part = _conv(entry)
+        elif name.startswith('bn'):
+            part = _batch_norm(entry, stats.get(name))
+        else:
+            part = _dense(entry)
+        out.update({f'{name}.{k}': v for k, v in part.items()})
+    return out
+
+
+# ----------------------------------------------- the reference's .pth files
+def load_torch_checkpoint(path: str) -> dict:
+    """A reference ``.pth`` state dict on the CPU, unwrapped: a
+    ``'state_dict'`` entry, the ``module.`` (DataParallel) and
+    ``generated_image_model.`` (CEM wrapper) prefixes; the CEM's frozen
+    ``Filter_OP`` weights are dropped (the port builds them
+    analytically).  Read with ``weights_only=True``: tensors and plain
+    containers only."""
+    raw = torch.load(path, map_location='cpu', weights_only=True)
+    if isinstance(raw, dict) and 'state_dict' in raw:
+        raw = raw['state_dict']
+    out = {}
+    for k, v in raw.items():
+        k = re.sub(r'^module\.', '', k)
+        k = re.sub(r'^generated_image_model\.', '', k)
+        if 'Filter_OP' not in k:
+            out[k] = v
+    return out
+
+
+def _array(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def convert_esrgan_rrdb(state: dict, nb: int = 23,
+                        latent_channels: int = 3) -> dict:
+    """A torch ESRGAN-layout RRDB state dict -> the state dict of the
+    port's :class:`~exsr_torch.models.rrdb.RRDBNet` with
+    ``latent_channels`` Z channels.
+
+    Keys: ``model.0`` (``fea_conv``), ``model.1.sub.{i}.RDB{r}.conv{c}.0``
+    (trunk block ``i``), ``model.1.sub.{nb}`` (``trunk_conv``),
+    ``model.3`` / ``model.6`` (``upconv0`` / ``upconv1``), ``model.8`` /
+    ``model.10`` (``hr_conv0`` / ``hr_conv1``).  The widths ``nf`` and
+    ``gc`` are read off the checkpoint, so each conv's input width without
+    Z is known exactly.  A conv of that width (plain ESRGAN) gets
+    ``latent_channels`` zero input channels prepended, the Z of the
+    port's ``cat([z, x])``; a conv that already has them (a trained
+    explorable checkpoint) is kept; any other width raises ``ValueError``.
+    The upconvs take no Z."""
+    nz = latent_channels
+    nf = int(_array(state['model.0.weight']).shape[0])
+    gc = int(_array(state['model.1.sub.0.RDB1.conv1.0.weight']).shape[0])
+    out = {}
+
+    def conv(name, key, z, expect_in):
+        w = _array(state[f'{key}.weight'])
+        if z:
+            if w.shape[1] == expect_in:
+                w = np.concatenate([np.zeros((w.shape[0], z) + w.shape[2:],
+                                             w.dtype), w], axis=1)
+            elif w.shape[1] != expect_in + z:
+                raise ValueError(
+                    f'{key}.weight: input width {w.shape[1]} matches '
+                    f'neither the no-z width {expect_in} nor the explorable '
+                    f'width {expect_in + z} (nz={z})')
+        out[f'{name}.weight'] = torch.from_numpy(np.array(w))
+        if f'{key}.bias' in state:
+            out[f'{name}.bias'] = torch.from_numpy(np.array(
+                _array(state[f'{key}.bias'])))
+
+    conv('fea_conv', 'model.0', nz, 3)
+    for i in range(nb):
+        for r in (1, 2, 3):
+            for c in range(5):
+                conv(f'trunk.{i}.rdb{r}.conv{c}',
+                     f'model.1.sub.{i}.RDB{r}.conv{c + 1}.0', nz, nf + gc * c)
+    conv('trunk_conv', f'model.1.sub.{nb}', nz, nf)
+    conv('upconv0', 'model.3', 0, nf)
+    conv('upconv1', 'model.6', 0, nf)
+    conv('hr_conv0', 'model.8', nz, nf)
+    conv('hr_conv1', 'model.10', nz, nf)
+    return out
+
+
+def convert_msrresnet(state: dict, nf: int = 64, nb: int = 16,
+                      upscale: int = 4) -> dict:
+    """A torch ``MSRResNet`` state dict (``conv_first``,
+    ``recon_trunk.<i>.conv1|2``, ``upconv<k>``, ``HRconv``, ``conv_last``)
+    -> the state dict of the port's
+    :class:`~exsr_torch.models.classifiers.MSRResNet`.
+
+    Torch's ``PixelShuffle`` reads output channel ``c * f * f + a * f + b``
+    for sub-pixel ``(a, b)``; the port's ``pixel_shuffle_nhwc`` reads
+    ``(a * f + b) * C + c``, ``exsr``'s order.  So each upconv's output
+    channels (weight and bias) are permuted as ``exsr`` permutes them."""
+    state = {k.replace('module.', ''): v for k, v in state.items()}
+    out = {}
+
+    def conv(name, key, index=None):
+        w, b = _array(state[f'{key}.weight']), _array(state[f'{key}.bias'])
+        if index is not None:
+            w, b = w[index], b[index]
+        out[f'{name}.weight'] = torch.from_numpy(np.array(w))
+        out[f'{name}.bias'] = torch.from_numpy(np.array(b))
+
+    conv('conv_first', 'conv_first')
+    for i in range(nb):
+        conv(f'rb{i}_conv1', f'recon_trunk.{i}.conv1')
+        conv(f'rb{i}_conv2', f'recon_trunk.{i}.conv2')
+    n_up = 1 if upscale == 3 else int(np.log2(upscale))
+    f = 3 if upscale == 3 else 2
+    for u in range(n_up):
+        o = _array(state[f'upconv{u + 1}.weight']).shape[0]
+        # port slot a*f*C + b*C + ch holds torch channel ch*f*f + a*f + b
+        idx = np.arange(o).reshape(o // (f * f), f, f).transpose(1, 2, 0) \
+            .reshape(-1)
+        conv(f'upconv{u + 1}', f'upconv{u + 1}', idx)
+    conv('HRconv', 'HRconv')
+    conv('conv_last', 'conv_last')
+    return out
+
+
+def align_params_to(module: torch.nn.Module, converted: dict
+                    ) -> torch.nn.Module:
+    """Load a converted state dict into ``module`` after checking it: each
+    tensor takes the dtype of the module's entry of the same name, and a
+    shape that differs raises ``ValueError`` naming the key and both
+    shapes; then ``load_state_dict(strict=True)``, which names missing and
+    unexpected keys.  Returns ``module``."""
+    template = module.state_dict()
+    cast = {}
+    for k, v in converted.items():
+        v = torch.as_tensor(v)
+        if k in template:
+            if tuple(v.shape) != tuple(template[k].shape):
+                raise ValueError(
+                    f'shape mismatch at {k}: module {tuple(template[k].shape)}'
+                    f' vs converted {tuple(v.shape)}')
+            v = v.to(template[k].dtype)
+        cast[k] = v
+    module.load_state_dict(cast, strict=True)
+    return module

@@ -1034,3 +1034,51 @@ def test_kernelgan_first_iterations_on_cuda_match_cpu(cuda):
     cpu = _kg_gaps(runs[('cpu', f32)], exact)
     assert all(c <= max(1e-4, 3 * p) for c, p in zip(card, cpu)), \
         (card, cpu)
+
+
+def test_web_sr_optimize_request_on_cuda(cuda):
+    """One SR 'optimize' request through the server's SessionApi at nb 2
+    on CUDA: it launches stage4, the CEM filters and sepfilter_taps (an
+    initial forward, 5 steps forward and backward, the view's forward),
+    its losses match the same request on the CPU to 1e-5 of the first
+    loss, and the served view keeps the CEM's consistency."""
+    import base64
+    import io
+    from PIL import Image
+    from exsr_torch.apps.session import EditSession
+    from exsr_torch.apps.web import SessionApi
+    from exsr_torch.ops.kernels.sepfilter import sepfilter_taps
+    img = (np.random.default_rng(5).uniform(size=(96, 96, 3)) * 255) \
+        .astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format='PNG')
+    png = base64.b64encode(buf.getvalue()).decode()
+    counted = (sepfilter_edge, sepfilter_down, sepfilter_up, stage4,
+               sepfilter_taps)
+    results = {}
+    for dev in ('cpu', cuda):
+        s = EditSession(scale=4, nb=2, nf=16, device=dev,
+                        time_budget_s=120.0)
+        s.init_random_params(0)
+        api = SessionApi(s)
+        api.dispatch('open', {'image': png, 'is_hr': True})
+        api.dispatch('region', {'rect': [32, 32, 64, 64]})
+        for f in counted:
+            f.launches = 0
+        out = api.dispatch('optimize', {'objective': 'max_STD',
+                                        'max_iters': 5})
+        torch.cuda.synchronize()
+        results[str(dev)] = (out, tuple(f.launches for f in counted), s)
+    (oc, lc, _), (og, lg, sg) = results['cpu'], results[str(cuda)]
+    assert lc == (0, 0, 0, 0, 0)
+    assert lg == (2 * 7, 7, 7, 6 * 7, 3 * 5)
+    lt, lr_ = np.asarray(og['losses']), np.asarray(oc['losses'])
+    assert lt.shape == (5,) and lt[-1] < lt[0]
+    assert np.abs(lt - lr_).max() <= 1e-5 * abs(lr_[0])
+    m = sg.cem.invalidity_margins_lr
+    with torch.no_grad():
+        lr = torch.as_tensor(sg.lr_image, device=cuda)
+        out = sg._wrapped(sg.eff_params, lr, torch.as_tensor(
+            sg.cur_z, device=cuda), m, pre_pad=True)
+        cons = (sg.filters.downscale(out) - lr)[:, m:-m, m:-m].abs().max()
+    assert cons.item() < 5e-6

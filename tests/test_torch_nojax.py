@@ -35,7 +35,8 @@ def test_every_module_imports_with_jax_and_exsr_blocked():
               'jpeg.jfif', 'native', 'native.jfif_native', 'models.dncnn',
               'train.decomp', 'apps.jpeg_session', 'apps.eval_jpeg',
               'device', 'train.decomp_chroma', 'apps.train_jpeg',
-              'kernelgan', 'kernelgan.kernelgan'):
+              'kernelgan', 'kernelgan.kernelgan', 'apps.web', 'apps.scripts',
+              'data.packed'):
         assert f'exsr_torch.{m}' in mods
     blocked = '; '.join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
     code = (f'import sys; {blocked}; import importlib; '

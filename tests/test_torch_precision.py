@@ -260,3 +260,62 @@ def test_kernelgan_estimate(tf32_on):
         .astype(np.float32)
     seen = _recorded(lambda: kg.estimate(img), backward=True)
     assert 'mm' in seen       # the kernel's centre of mass
+
+
+def _png64(img):
+    import base64
+    import io
+    buf = io.BytesIO()
+    Image.fromarray((img * 255).astype(np.uint8)).save(buf, format='PNG')
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def test_web_sr_handlers_and_svhn(tf32_on):
+    """The server's SR handlers (open, view, an edit, digit) and the SVHN
+    classifier's apply function: TF32 off at every convolution and
+    product, forward and backward."""
+    from exsr_torch.apps.session import EditSession
+    from exsr_torch.apps.web import SessionApi
+    s = EditSession(scale=4, nb=1, nf=16, device='cpu', time_budget_s=60.0)
+    s.init_random_params(0)
+    api = SessionApi(s)
+    img = np.random.default_rng(8).uniform(size=(48, 48, 3))
+    _recorded(lambda: api.dispatch('open', {'image': _png64(img)}))
+    api.dispatch('region', {'rect': [8, 8, 40, 40]})
+    _recorded(lambda: api.dispatch('optimize', {'objective': 'max_STD',
+                                                'max_iters': 2}),
+              backward=True)
+    seen = _recorded(lambda: api._get_svhn_apply('')(
+        torch.rand(2, 54, 54, 3) * 2 - 1))
+    assert 'addmm' in seen or 'mm' in seen      # the classifier's heads
+    _recorded(lambda: api.dispatch('digit', {'digit': 3, 'max_iters': 1}),
+              backward=True)
+
+
+def test_web_jpeg_handlers(tf32_on):
+    """The server's JPEG handlers: a real JPEG opened by its coefficients,
+    the input and colour views, an edit and a digit."""
+    import base64
+    import io
+    from exsr_torch.apps.jpeg_session import JPEGEditSession
+    from exsr_torch.apps.web import JpegSessionApi
+    s = JPEGEditSession(nf=8, nb=3, latent_channels=64, device='cpu')
+    s.init_random_params(0)
+    api = JpegSessionApi(s)
+    buf = io.BytesIO()
+    Image.fromarray((np.random.default_rng(9).uniform(size=(32, 32, 3))
+                     * 255).astype(np.uint8)).save(buf, format='JPEG',
+                                                   quality=20)
+    _recorded(lambda: api.dispatch('open', {'image': base64.b64encode(
+        buf.getvalue()).decode()}))
+    for which in ('input', 'rgb'):
+        rec = FlagRecorder()
+        with rec:
+            api.dispatch('view', {'which': which})
+        assert set().union(*rec.seen.values()) <= {(False, False)}
+    api.dispatch('region', {'rect': [8, 8, 24, 24]})
+    _recorded(lambda: api.dispatch('optimize', {'objective': 'max_STD',
+                                                'max_iters': 2}),
+              backward=True)
+    _recorded(lambda: api.dispatch('digit', {'digit': 3, 'max_iters': 1}),
+              backward=True)
