@@ -88,6 +88,9 @@ Phases, one JSON line each:
    a GAN-phase ``--resume`` with the flagship options (two dual D steps;
    its controller holds G back) with validation and checkpoints; launches,
    ``logs.npz``, the resumed step, and ``eval_sr`` loading the result;
+   the init run again with the loader's LR synthesis on ``imresize``'s
+   numpy path, and the CLI's own ``t_data`` / ``t_step`` per step on both
+   routes (the C++ path is the default);
 14. jpeg_codec: the explorable-JPEG codec at batch 16, 512 x 512, on the
    card against the CPU (luma and chroma, every packed layout; quantised
    coefficients equal except at float64 ties), the QF tables against
@@ -152,13 +155,36 @@ Phases, one JSON line each:
    explorable ``.pth`` and three 512 x 512 PNGs (69 ``stage4`` a forward,
    every summary key finite), ``export_g`` on phase 13's checkpoint,
    ``pack`` and a ``PackedLRHRDataset`` batch.  Phases 21-22 run with TF32
-   switched on.
+   switched on;
+24. models: the models no entry point reaches, at full width, on the card
+   against the CPU in fp32 (1e-4 of the largest output) with ms per
+   forward: ``SFTNet`` (16 blocks) at LR 128 with its 512 x 512
+   segmentation, batch 4; ``make_feature_extractor`` for VGG19, the SegNet
+   encoder, MINCNet and ResNet101 and ``EResNet`` at 224 x 224, batch 4;
+   the three fixed-size critics at 96 / 192, 128 and 96, batch 16, in
+   train mode (their running statistics, or ``u``, too);
+25. native_resize: ``imresize``'s C++ path (built by ``g++`` at first use)
+   against its numpy path, a 512 x 512 x 3 image at 1/4 and a 128 x 128 x 3
+   one at x4, within 1e-12, ms each;
+26. train_ddp: (a) ``train_sr`` under ``torchrun --nproc_per_node 1``
+   (NCCL) with the flagship options for two steps, its checkpoint bit-equal
+   to the plain run's; (b) two gloo ranks on the card, each on half of the
+   global batch 16, through the SR trainer (non-dual and dual D and G
+   steps, flagship options) and (c) the JPEG Y trainer (non-dual D and G
+   at train_jpeg's defaults), against the one-process steps: gradients and
+   updated parameters within the gap phase 12's rule allows between the
+   card and the CPU (SR; the dual steps on the one-process run's MAP
+   result, the ranks' own reported) or within three times the card's gap
+   to the CPU for the same JPEG steps, running statistics within 1e-4, the
+   controller's decisions equal; each rank's CEM-kernel launches and ms
+   per step.
 
 Phase 3 also checks and times ``sepfilter_taps``, the CEM filter's adjoint
 kernel, at the edit shape and at the main path's batch-16 shapes; the
 kernels line gives each CEM kernel's training launches and times beside
-its serving ones (``train``) and the server's launches per request and
-times at its edit's crop (``web``).
+its serving ones (``train``), the server's launches per request and
+times at its edit's crop (``web``), and its launches on each of phase 26's
+two ranks per SR training step (``ddp``).
 
 Any failed check raises and the script exits non-zero.  The last lines are
 the kernels summary, the ``nvidia-smi`` name and power limit, and
@@ -232,6 +258,21 @@ KG_CHECK_ITERS, KG_EVAL_LR, KG_EVAL_ITERS = 20, 128, 300
 WEB_HR, WEB_ITERS, WEB_DIGIT_ITERS = 256, 10, 5
 # scripts official_parity: its images and their HR size
 PARITY_IMAGES, PARITY_HR = 3, 512
+# the models no entry point reaches: SFTNet's LR size and the batch, the
+# feature extractors' input size, the critics' batch, timed forwards
+SFT_LR, MODELS_BATCH, FEAT_HW, CRITIC_BATCH, MODELS_ITERS = 128, 4, 224, 16, 5
+# imresize's C++ path: timed repeats of each route
+RESIZE_REPS = 3
+# data-parallel training: the global batch, the torchrun CLI's steps, and
+# the time limit of each launch
+DDP_BATCH, DDP_CLI_STEPS, DDP_TIMEOUT = 16, 2, 300
+# two ranks against one process: how far a rank's MAP-objective gradient
+# may be from its slice of the one-process one, and the JPEG steps'
+# gradients from the one-process ones (D, G), each a share of the largest
+# element; set between the sound readings and those of the planted
+# faults (PERF.md, section 6)
+DDP_MAP_TOL = 0.2
+DDP_JPEG_TOL = {'d': 2e-2, 'g': 0.15}
 
 
 def emit(phase: str, **fields) -> None:
@@ -478,6 +519,19 @@ def zero_launches() -> None:
 
 def read_launches() -> dict:
     return {k: fn.launches for k, fn in _counted().items()}
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Launches inside the block are not counted: a check run beside the
+    path whose launches are read."""
+    counted = _counted()
+    before = {k: fn.launches for k, fn in counted.items()}
+    try:
+        yield
+    finally:
+        for k, fn in counted.items():
+            fn.launches = before[k]
 
 
 def per_forward(forwards: int, stage4: int = 0, rdb: int = 0,
@@ -1231,11 +1285,11 @@ def phase_batch_sweep(name):
     return table
 
 
-def train_setup(device, models: bool = True):
+def train_setup(device, models: bool = True, dp=None):
     """The flagship configuration (``TRAIN_OPT``, through the port's
     ``parse`` and ``experiment_from_reference_json``): its trainer on
-    ``device``, the CEM filters and, with ``models``, a seeded generator
-    and D."""
+    ``device`` (a rank of ``dp`` when given), the CEM filters and, with
+    ``models``, a seeded generator and D."""
     from exsr_torch.cem.cem import CEM, CEMConf, cem_wrap
     from exsr_torch.models.discriminators import DiscriminatorVGG128
     from exsr_torch.models.rrdb import RRDBNet
@@ -1249,7 +1303,8 @@ def train_setup(device, models: bool = True):
     wrapped = cem_wrap(lambda m, x, z: m(x, z), filt, upscale=cfg.scale)
     margins = cem.invalidity_margins_hr
     trainer = SRRaGANTrainer(
-        cfg, lambda m, x, z: wrapped(m, x, z, 0, pre_pad=False), margins)
+        cfg, lambda m, x, z: wrapped(m, x, z, 0, pre_pad=False), margins,
+        dp=dp)
     if not models:
         return exp, filt, trainer, None, None
     g = RRDBNet(nf=net_g.nf, nb=net_g.nb, gc=net_g.gc, upscale=cfg.scale,
@@ -1576,6 +1631,29 @@ def phase_train_cli(device, name, keep):
                        l_d_total=log.last('l_d_total'),
                        l_g_pix=log.last('l_g_pix'), last_step=last,
                        eval_checkpoint_ok=True)
+        # the init run again with the loader's LR synthesis on the numpy
+        # path: train_sr's own t_data / t_step (ms a step) on both routes
+        import functools
+        from exsr_torch.data import datasets
+        from exsr_torch.ops.resize import imresize
+        zero_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            real = datasets.imresize
+            datasets.imresize = functools.partial(imresize,
+                                                  allow_native=False)
+            try:
+                train_sr.main(runs[0][1][:3] + [f'{tmp}/exp_numpy']
+                              + runs[0][1][4:])
+            finally:
+                datasets.imresize = real
+        check(read_launches() == runs[0][2], 'train_cli numpy-loader run')
+        numpy_steps = [json.loads(ln) for ln in out.getvalue().splitlines()
+                       if ln.startswith('{') and 'steps_per_s' in ln]
+        results['loader'] = {
+            route: {k: [ln[f'{k}_ms'] for ln in steps]
+                    for k in ('t_data', 't_step', 't_fetch')}
+            for route, steps in (('native', results['init']['steps']),
+                                 ('numpy', numpy_steps))}
     results['phase_s'] = time.perf_counter() - t_phase
     emit('train_cli', device=name, images=CLI_TRAIN_IMAGES,
          hr=CLI_TRAIN_HR, **results)
@@ -3113,6 +3191,14 @@ def web_rows(web) -> dict:
     return rows
 
 
+def ddp_launches(ddp, counter) -> dict:
+    """A CEM kernel's launches on each of phase 26's two gloo ranks, per
+    SR training step, beside the one-process step's."""
+    per = ddp['sr']['launches_per_rank']
+    return {'launches_per_rank_per_step': {
+        step: [r[counter] for r in ranks] for step, ranks in per.items()}}
+
+
 def train_rows(records, kern, taps) -> dict:
     """The training path's fields of each CEM kernel's row of the kernels
     line: launches per step kind and per iteration (D then G step), and
@@ -3162,6 +3248,607 @@ def taps_row(kern, edit_runs):
                                        for p in parts.values())
             else 'operations',
             'shape': parts['E']['shape_in']}
+
+
+def _models_cases():
+    """Phase 24's models: ``(tag, module, inputs, train)`` at full width,
+    each module seeded (flax's initialisers) on the CPU."""
+    import numpy as np
+    import torch
+    from exsr_torch.models.discriminators import (ACDVGGBN96,
+                                                  DiscriminatorVGG,
+                                                  DiscriminatorVGG128SN)
+    from exsr_torch.models.encoders import EResNet
+    from exsr_torch.models.factory import make_feature_extractor
+    from exsr_torch.models.sft import SFTNet
+    rng = np.random.default_rng(61)
+
+    def x(*shape):
+        return torch.from_numpy(rng.uniform(size=shape).astype(np.float32))
+    seg = torch.softmax(4 * x(MODELS_BATCH, 4 * SFT_LR, 4 * SFT_LR, 8), -1)
+    cases = [('sft', SFTNet(seed=0), (x(MODELS_BATCH, SFT_LR, SFT_LR, 3),
+                                      seg), False)]
+    for arch in ('vgg19', 'SegNetAE', 'minc', 'resnet101'):
+        cases.append((f'factory[{arch}]', make_feature_extractor(arch),
+                      (x(MODELS_BATCH, FEAT_HW, FEAT_HW, 3),), False))
+    cases.append(('eresnet', EResNet(output_nc=8, vae_like=True,
+                                     input_size=FEAT_HW, seed=0),
+                  (x(MODELS_BATCH, FEAT_HW, FEAT_HW, 3),), False))
+    for tag, d, size in (
+            ('critic_vgg96', DiscriminatorVGG(input_size=96, seed=1), 96),
+            ('critic_vgg192', DiscriminatorVGG(input_size=192, seed=1), 192),
+            ('critic_vgg128sn', DiscriminatorVGG128SN(seed=1), 128),
+            ('critic_acd96', ACDVGGBN96(seed=1), 96)):
+        cases.append((tag, d, (x(CRITIC_BATCH, size, size, 3),), True))
+    return cases
+
+
+def phase_models(name):
+    """The models no entry point reaches, at full width on the card in
+    fp32 (TF32 off): ms per forward (CUDA events) and the output against
+    the same module on the CPU, within 1e-4 of its largest element; the
+    critics in train mode (batch statistics; the running statistics, or
+    spectral norm's ``u``, moved once and held to the CPU's)."""
+    import copy
+    import torch
+    from exsr_torch.device import full_fp32
+    t_phase = time.perf_counter()
+    out = {}
+    with full_fp32():
+        for tag, module, inputs, train in _models_cases():
+            card = copy.deepcopy(module).to('cuda')
+            cpu_in = inputs
+            card_in = tuple(t.to('cuda') for t in inputs)
+            kw = {'update_stats': True} if train else {}
+            with torch.no_grad():
+                want = module(*cpu_in, **kw)
+                got = card(*card_in, **kw)
+            pairs = list(zip(got, want)) if isinstance(want, tuple) \
+                else [(got, want)]
+            err = max(float((g.cpu() - w).abs().max() / w.abs().max())
+                      for g, w in pairs)
+            check(err < 1e-4 and all(bool(torch.isfinite(g).all())
+                                     for g, _ in pairs),
+                  f'models {tag}: card vs CPU {err}')
+            rec = dict(max_rel_err=err, batch=inputs[0].shape[0],
+                       input=list(inputs[0].shape[1:]),
+                       output=[list(g.shape) for g, _ in pairs],
+                       params=sum(p.numel() for p in module.parameters()))
+            if train:
+                # the running statistics (or u) after the one train-mode
+                # forward, card against CPU, before the timed ones move
+                # the card's further
+                sd = card.state_dict()
+                stats = {k: v for k, v in module.state_dict().items()
+                         if 'running' in k or k.endswith('.u')}
+                rec['buffers_max_rel_err'] = max(
+                    float(((sd[k].cpu() - v).abs()
+                           / v.abs().clamp(min=1)).max())
+                    for k, v in stats.items())
+                check(rec['buffers_max_rel_err'] < 1e-4,
+                      f'models {tag}: buffers {rec["buffers_max_rel_err"]}')
+            with torch.no_grad():
+                rec['ms'] = cuda_ms(lambda *a: card(*a, **kw), [card_in],
+                                    MODELS_ITERS)
+            out[tag] = rec
+            emit('models_forward', model=tag, device=name, **rec)
+            del card, card_in, got
+            torch.cuda.empty_cache()
+    emit('models', device=name, models=sorted(out),
+         phase_s=time.perf_counter() - t_phase)
+    return out
+
+
+def phase_native_resize(name):
+    """``imresize``'s C++ path (``g++`` builds it at first use) against
+    its numpy path: a 512 x 512 x 3 HR image at 1/4 and a 128 x 128 x 3
+    LR image at x4, within 1e-12; ms each (host clock, best of a few)."""
+    import numpy as np
+    from exsr_torch.native import separable
+    from exsr_torch.ops.resize import imresize
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    separable.load()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(67)
+    rec = {'build_s': build_s}
+    for tag, im, factor in (
+            ('down_512_x1/4', rng.uniform(size=(512, 512, 3)), 0.25),
+            ('up_128_x4', rng.uniform(size=(128, 128, 3)), 4.0)):
+        times = {}
+        outs = {}
+        for route, native in (('native', True), ('numpy', False)):
+            best = float('inf')
+            for _ in range(RESIZE_REPS):
+                t0 = time.perf_counter()
+                outs[route] = imresize(im, factor, allow_native=native)
+                best = min(best, time.perf_counter() - t0)
+            times[route] = 1e3 * best
+        err = float(np.abs(outs['native'] - outs['numpy']).max())
+        check(err <= 1e-12 and outs['native'].shape == outs['numpy'].shape,
+              f'native_resize {tag}: {err}')
+        rec[tag] = dict(native_ms=times['native'], numpy_ms=times['numpy'],
+                        max_abs_err=err, out=list(outs['native'].shape))
+    rec['phase_s'] = time.perf_counter() - t_phase
+    emit('native_resize', device=name, **rec)
+    return rec
+
+
+def _map_feed(trainer, zstar_in):
+    """Wrap the SR trainer's MAP loop.  Each call records the MAP
+    objective's gradient at the loop's start (``grads``: the trainer's
+    own ``_map_grad``; on a rank also ``control``, the same with the rank's
+    local mean in place of its share of the global mean, the planted
+    normalisation fault), computed beside the step (its launches not
+    counted, its seconds in ``spent``), and the loop's Z* (``rec``).  With
+    ``zstar_in`` (the one-process run's Z* of each call, in order) the
+    rank's slice of it replaces the rank's own, whose gap to it is
+    recorded (``gaps``): the loop's ten Adam steps at lr 1 turn
+    rounding-level gradient differences into different Z* wherever an
+    element's gradient is near zero, so the rest of a dual step is
+    compared on the same Z*."""
+    import copy
+    import torch
+    local = copy.copy(trainer)
+    local.dp = None
+    real = trainer._optimal_z
+    rec, gaps, grads, control, spent = [], [], [], [], []
+    feed = list(zstar_in or [])
+
+    def optimal_z(g, lr_img, hr, theta0):
+        if theta0.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _uncounted():
+            grads.append(trainer._map_grad(g, lr_img, hr, theta0).cpu())
+            if trainer.dp is not None:
+                control.append(local._map_grad(g, lr_img, hr, theta0)
+                               .cpu())
+        spent.append(time.perf_counter() - t0)
+        z = real(g, lr_img, hr, theta0)
+        rec.append(z.cpu())
+        if zstar_in is None:
+            return z
+        given = trainer.dp.shard(feed.pop(0)).to(z.device)
+        diff = (z - given).abs()
+        gaps.append({'max_abs': float(diff.max()),
+                     'share_over_1e-3': float((diff > 1e-3).float().mean())})
+        return given
+    trainer._optimal_z = optimal_z
+    return rec, gaps, grads, control, spent
+
+
+def _ddp_steps(trainer, state, batch, steps, zstar_in=None):
+    """The steps ``(kind, dual)`` of a data-parallel comparison, one after
+    another through the trainer's pieces (draws, gradients, Adam): per
+    step the gradients, the metrics, the running statistics, the host ms
+    (the first call of each kind: cold; without :func:`_map_feed`'s
+    checks) and, for the SR trainer, what :func:`_map_feed` records of
+    the MAP loop (``zstar_in`` feeds it the one-process run's Z*); the
+    controller's decisions after each; the parameters after all."""
+    import torch
+    from exsr_torch.device import full_fp32
+    from exsr_torch.train.controller import GANController
+    from exsr_torch.train.srragan import adam_step
+    from exsr_torch.utils.misc import fetch_scalars
+    cfg = trainer.cfg
+    sr = hasattr(trainer, 'g_apply')
+    dev = state.generator.device
+    cuda = dev.type == 'cuda'
+    ctl = GANController()
+    out = []
+    if sr:
+        feeds = _map_feed(trainer, zstar_in)
+    for i, (kind, dual) in enumerate(steps):
+        if sr:
+            seen = [len(f) for f in feeds]
+        zero_launches()
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with full_fp32():
+            if sr:
+                shape = batch['hr'].shape
+                args = (state, batch['lr'], batch['hr'])
+            else:
+                b, h, w = batch['uncomp'].shape[:3]
+                shape = (b, h // 8, w // 8, 64)
+                args = (state, batch)
+            draw = trainer.draw_d if kind == 'd' else trainer.draw_g
+            draws = draw(state, shape, dual)
+            if kind == 'd':
+                grads, metrics = trainer.d_grads(*args, draws, dual)
+                module, opt, lr = state.d, state.d_opt, cfg.lr_d
+            else:
+                grads, metrics, state.ratio_stats = trainer.g_grads(
+                    *args, draws, dual, True)
+                module, opt, lr = state.g, state.g_opt, cfg.lr_g
+            names = [n for n, _ in module.named_parameters()]
+            grads = {n: g.detach().double().cpu()
+                     for n, g in zip(names, grads)}
+            adam_step(state, opt, lr, cfg)
+        if cuda:
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0
+                    - (sum(feeds[-1][seen[-1]:]) if sr else 0.0))
+        metrics = fetch_scalars(metrics)
+        if kind == 'd':
+            ctl.record_d(metrics)
+        else:
+            ctl.record_g()
+        ctl.tick()
+        out.append({'kind': kind, 'dual': dual, 'ms': ms, 'grads': grads,
+                    'metrics': metrics, 'launches': read_launches(),
+                    **dict(zip(('zstar', 'zstar_gaps', 'map_grad',
+                                'map_control'),
+                               ([f[n:] for f, n in zip(feeds, seen)] if sr
+                                else [[]] * 4))),
+                    'want': (ctl.want_d_step(), ctl.want_g_step()),
+                    'running': {f'{t}.{k}': v.double().cpu()
+                                for t, m in (('g', state.g), ('d', state.d))
+                                for k, v in m.state_dict().items()
+                                if 'running' in k}})
+    params = {f'{t}.{k}': p.detach().double().cpu()
+              for t, m in (('g', state.g), ('d', state.d))
+              for k, p in m.named_parameters()}
+    return out, params
+
+
+def _local_bn(state) -> None:
+    """The planted fault: every batch norm of the state's modules left to
+    the rank's own samples."""
+    from exsr_torch.parallel.dist import sync_batch_norm
+    for m in (state.g, state.d):
+        sync_batch_norm(m, None)
+
+
+def _with_fault(trainer, state, batch, steps, fault_steps, zstar_in=None):
+    """``steps`` from the state's start and, on a rank, ``fault_steps``
+    from the same start with the planted fault (:func:`_local_bn`):
+    ``(sound, fault or None)``."""
+    start = [{k: v.clone() for k, v in m.state_dict().items()}
+             for m in (state.g, state.d)]
+    sound = _ddp_steps(trainer, state, batch, steps, zstar_in=zstar_in)
+    if trainer.dp is None:
+        return sound, None
+    for m, weights in zip((state.g, state.d), start):
+        m.load_state_dict(weights)
+    state = trainer.init_state(state.g, state.d, seed=2,
+                               device=state.generator.device)
+    _local_bn(state)
+    return sound, _ddp_steps(trainer, state, batch, fault_steps)
+
+
+def _ddp_sr(device, dp=None, zstar_in=None):
+    """Phase 26(b)'s SR workload: the flagship trainer's non-dual D, G,
+    then dual D, G steps on the global batch 16; on a rank also the
+    planted fault's non-dual D step."""
+    exp, _, trainer, g, d = train_setup(device, dp=dp)
+    state = trainer.init_state(g, d, seed=2, device=device)
+    batch = train_batch(exp.train, DDP_BATCH, device, seed=71)
+    return _with_fault(trainer, state, batch, TRAIN_KINDS, TRAIN_KINDS[:1],
+                       zstar_in)
+
+
+def _ddp_jpeg(device, dp=None):
+    """Phase 26(c)'s workload: the JPEG Y trainer at train_jpeg's defaults,
+    a non-dual D then G step on the global batch 16 (on a rank also with
+    the planted fault)."""
+    from exsr_torch.train.decomp import DecompTrainer
+    jtr, g, d, data = jpeg_train_setup(DDP_BATCH, seed=73)
+    jtr = DecompTrainer(jtr.cfg, dp=dp)
+    state = jtr.init_state(g, d, seed=2, device=device)
+    batch = {k: v.to(device) for k, v in data.items()}
+    steps = (('d', False), ('g', False))
+    return _with_fault(jtr, state, batch, steps, steps)
+
+
+def _ddp_workloads(device, dp=None, zstar_in=None):
+    """Phase 26's workloads on ``device``, one process (``dp`` None) or
+    one rank of a gloo run (``zstar_in``: the one-process run's Z*), on
+    the global batch 16: the flagship SR trainer and the JPEG Y trainer,
+    each with the planted fault's run on a rank."""
+    import torch
+    res = {}
+    res['sr'], res['sr_local_bn'] = _ddp_sr(device, dp, zstar_in)
+    torch.cuda.empty_cache()
+    res['jpeg'], res['jpeg_local_bn'] = _ddp_jpeg(device, dp)
+    return res
+
+
+def _ddp_rank(init, rank, world, out_path, zstar_path):
+    """One gloo rank of phase 26(b, c) on the card (``python -c`` entry
+    point): its workloads' results into ``out_path``, the one-process
+    run's Z* read from ``zstar_path``."""
+    import torch
+    import torch.distributed as dist
+    from exsr_torch.parallel.dist import DataParallel
+    device = torch.device('cuda', 0)
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group('gloo', init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        res = _ddp_workloads(device, DataParallel(rank, world,
+                                                  device=device),
+                             torch.load(zstar_path))
+        torch.save(res, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _processes(cmds: dict, tmp: str):
+    """Start each ``{tag: argv}`` from the repository root, its output in
+    ``tmp/<tag>.log``; the block gets ``wait(timeout)``, which checks that
+    every one exited 0.  Every process is stopped when the block ends."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    try:
+        for tag, argv in cmds.items():
+            log = open(f'{tmp}/{tag}.log', 'w')
+            procs[tag] = (subprocess.Popen(argv, cwd=root, stdout=log,
+                                           stderr=subprocess.STDOUT), log)
+
+        def wait(timeout):
+            deadline = time.monotonic() + timeout
+            for tag, (p, log) in procs.items():
+                try:
+                    p.wait(timeout=max(1.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    check(False, f'train_ddp {tag}: past {timeout} s')
+                log.close()
+                with open(f'{tmp}/{tag}.log') as f:
+                    text = f.read()
+                check(p.returncode == 0, f'train_ddp {tag}: {text[-3000:]}')
+        yield wait
+    finally:
+        for p, log in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+
+
+def _stats_gap(step, ref) -> float:
+    """The running statistics' largest gap to ``ref``'s (relative above
+    1)."""
+    return max([float(((step['running'][k] - v).abs()
+                       / v.abs().clamp(min=1)).max())
+                for k, v in ref['running'].items()] or [0.0])
+
+
+def _map_gap(one, ranks, key):
+    """The largest gap of the ranks' MAP-objective gradients ``key``
+    (``'map_grad'``, their own; ``'map_control'``, the planted fault's) to
+    their slices of the one-process step's: ``(relative L2, largest
+    element's difference as a share of the largest element)``, each the
+    largest over ranks and calls; None for a step without a MAP loop.
+    The fault scales the whole gradient, so the L2 gap shows it; single
+    elements jump where a pixel's L1 sign flips under rounding."""
+    from exsr_torch.parallel.dist import local_batch_slice
+    gaps = []
+    for r, step in enumerate(ranks):
+        for mine, full in zip(step[key], one['map_grad']):
+            part = full[local_batch_slice(full.shape[0], r, len(ranks))]
+            diff = (mine - part).double()
+            gaps.append((float(diff.norm() / part.double().norm()),
+                         float(diff.abs().max() / full.abs().max())))
+    return tuple(max(g) for g in zip(*gaps)) if gaps else (None, None)
+
+
+def _ddp_compare(one, ranks, tols):
+    """Phase 26(b, c)'s checks of one workload: both ranks equal; each
+    step's gradients within its ``tols`` entry (of the largest element)
+    of the one-process run's (a dual step on the one-process run's Z*,
+    the rank's own reported beside); a dual step's MAP-objective
+    gradients within ``DDP_MAP_TOL`` of their one-process slices (in L2,
+    relative), and the planted normalisation fault's beyond it; the running statistics
+    within 1e-4 (relative above 1: what every fp32 forward on the card is
+    held to against the CPU; after a dual D step the critic's statistics
+    of the MAP fake differ by ~1.5e-5 between batch 8 and 16); the
+    controller's decisions equal; the parameters after all steps within
+    the largest tolerance.  The failures are returned, after every row is
+    known."""
+    (steps1, params1), (steps_r0, params_r0) = one, ranks[0]
+    steps_r1, params_r1 = ranks[1]
+    rows, failed = [], []
+    for s1, s0, sr1, tol in zip(steps1, steps_r0, steps_r1, tols):
+        key = f'{s1["kind"]}_{"dual" if s1["dual"] else "single"}'
+        check(all(torch_equal(s0['grads'][k], sr1['grads'][k])
+                  for k in s0['grads']), f'train_ddp {key}: ranks differ')
+        gap = _grad_gap(s0['grads'], s1['grads'])
+        stats = _stats_gap(s0, s1)
+        stats_tol = 1e-4
+        metrics = max([abs(s0['metrics'][k] - v) / max(abs(v), 1e-6)
+                       for k, v in s1['metrics'].items()] or [0.0])
+        map_gap, map_max = _map_gap(s1, (s0, sr1), 'map_grad')
+        map_fault, _ = _map_gap(s1, (s0, sr1), 'map_control')
+        checks = [(gap <= tol, f'gradients {gap} > {tol}'),
+                  (stats <= stats_tol,
+                   f'running statistics {stats} > {stats_tol}'),
+                  (s0['want'] == s1['want'],
+                   f'controller {s0["want"]} vs {s1["want"]}')]
+        if map_gap is not None:
+            checks += [(map_gap <= DDP_MAP_TOL,
+                        f'MAP gradients {map_gap} > {DDP_MAP_TOL}'),
+                       (map_fault > DDP_MAP_TOL,
+                        f'the planted MAP fault passed: {map_fault}')]
+        failed += [f'{key}: {what}' for ok, what in checks if not ok]
+        rows.append(dict(step=key, grad_gap=gap, tol=tol,
+                         worst=_worst(s0['grads'], s1['grads']),
+                         map_grad_gap=map_gap, map_grad_max_gap=map_max,
+                         map_fault_gap=map_fault, map_tol=DDP_MAP_TOL,
+                         own_zstar_vs_one=s0['zstar_gaps'],
+                         running_max_rel_err=stats,
+                         metrics_max_rel_err=metrics,
+                         controller=s0['want'], one_ms=s1['ms'],
+                         rank_ms=[s0['ms'], sr1['ms']],
+                         launches_per_rank=[s0['launches'],
+                                            sr1['launches']],
+                         launches_one=s1['launches']))
+    check(all(torch_equal(params_r0[k], params_r1[k]) for k in params_r0),
+          'train_ddp: ranks end with different parameters')
+    pgap = _grad_gap(params_r0, params1)
+    if pgap > max(tols):
+        failed.append(f'updated parameters {pgap} > {max(tols)}')
+    return rows, pgap, failed
+
+
+def _fault_rows(one, fault, tols) -> tuple:
+    """The planted fault's steps (rank 0's) against the one-process ones:
+    per step the gradient gap beside its limit and the running
+    statistics' gap; whether a gradient gap passes its limit."""
+    rows = [dict(step=f'{s1["kind"]}_{"dual" if s1["dual"] else "single"}',
+                 grad_gap=_grad_gap(s0['grads'], s1['grads']), tol=tol,
+                 running_max_rel_err=_stats_gap(s0, s1))
+            for s1, s0, tol in zip(one[0], fault[0], tols)]
+    return rows, any(r['grad_gap'] > r['tol'] for r in rows)
+
+
+def _allowed_gap(ref) -> float:
+    """How far apart phase 12's rule lets two fp32 gradients of its step
+    be: their measured gap when within 1e-4; else the card may be up to
+    ``max(1e-4, 3 x cpu_vs_float64)`` from float64 while the CPU is
+    ``cpu_vs_float64`` from it, so the sum of the two."""
+    if 'cpu_vs_float64' not in ref:
+        return max(1e-4, ref['max_rel_err'])
+    return ref['cpu_vs_float64'] + max(1e-4, 3 * ref['cpu_vs_float64'])
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return bool(torch.equal(a, b))
+
+
+DETERMINISTIC_TRAIN_SR = """import runpy, sys
+import torch
+sys.path.insert(0, {root!r})
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+runpy.run_module('exsr_torch.apps.train_sr', run_name='__main__',
+                 alter_sys=True)
+"""
+
+
+def phase_train_ddp(device, name, tmp, sr_ref):
+    """Data-parallel training on the one card.  (a) ``train_sr`` under
+    ``torchrun --nproc_per_node 1`` (NCCL) with the flagship options for
+    two steps: its checkpoints bit-equal to a plain run's (both fresh
+    processes, cuDNN deterministic through a ``runpy`` wrapper).  (b, c)
+    Two gloo ranks (NCCL refuses two ranks on one device), each on its
+    half of the global batch 16, through the trainers: the flagship SR
+    steps (non-dual D, G, dual D, G) and the JPEG Y trainer's non-dual D
+    and G steps at train_jpeg's defaults, against the one-process steps
+    on the card.  SR gradients (the dual steps on the one-process run's
+    MAP result Z*, ``_map_feed``) and updated parameters within the gap
+    phase 12's rule allows between the card and the CPU; the MAP loop's
+    gradients and the JPEG ones within ``DDP_MAP_TOL`` and
+    ``DDP_JPEG_TOL``; running statistics and the controller's decisions
+    as ``_ddp_compare`` says; each rank's CEM-kernel launches and ms per
+    step (cold first calls; two ranks share the card: not a speed
+    claim).  Planted faults show that the checks can fail: the MAP
+    loop's local mean in place of the global one on every dual step, and
+    batch norms left local in the SR non-dual D step and the JPEG steps;
+    each must pass a limit.  (a) runs beside the one-process steps, the
+    ranks start when those end."""
+    import os
+    import torch
+    from exsr_torch.train.checkpoints import CheckpointManager
+    t_phase = time.perf_counter()
+    rec = {}
+    hr_dir = f'{tmp}/ddp_hr'
+    os.makedirs(hr_dir)
+    _write_pngs(hr_dir, DDP_BATCH, CLI_TRAIN_HR, seed=79)
+    wrapper = f'{tmp}/deterministic_train_sr.py'
+    with open(wrapper, 'w') as f:
+        f.write(DETERMINISTIC_TRAIN_SR.format(
+            root=os.path.dirname(os.path.abspath(__file__))))
+    argv = [wrapper, '--hr_dir', hr_dir, '--opt', TRAIN_OPT, '--niter',
+            str(DDP_CLI_STEPS), '--print_freq', '1']
+    launch = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+              '--nproc_per_node', '1']
+    cli = {tag: cmd + argv + ['--exp_dir', f'{tmp}/ddp_{tag}']
+           for tag, cmd in (('plain', [sys.executable]), ('nccl', launch))}
+    ranks = {f'rank{r}': [sys.executable, '-c', (
+        f'import chip_smoke; chip_smoke._ddp_rank("file://{tmp}/ddp_init",'
+        f' {r}, 2, "{tmp}/ddp{r}.pt", "{tmp}/ddp_zstar.pt")')]
+        for r in range(2)}
+    t0 = time.perf_counter()
+    with _processes(cli, tmp) as wait_cli:
+        one = _ddp_workloads(device)
+        one_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.save([z for step in one['sr'][0] for z in step['zstar']],
+                   f'{tmp}/ddp_zstar.pt')
+        with _processes(ranks, tmp) as wait_ranks:
+            wait_cli(DDP_TIMEOUT)
+            cli_s = time.perf_counter() - t0
+            wait_ranks(DDP_TIMEOUT)
+            ranks_s = time.perf_counter() - t0 - one_s
+    a = CheckpointManager(f'{tmp}/ddp_nccl/ckpt')
+    b = CheckpointManager(f'{tmp}/ddp_plain/ckpt')
+    check(a.all_steps() == b.all_steps() == [1, DDP_CLI_STEPS],
+          f'train_ddp checkpoints {a.all_steps()} {b.all_steps()}')
+    for step in a.all_steps():
+        diffs = _tree_diffs(a.restore_raw(step), b.restore_raw(step))
+        check(not diffs, f'train_ddp: the torchrun checkpoint of step '
+              f'{step} differs at {diffs[:8]} ({len(diffs)} entries)')
+    rec['torchrun_1_nccl'] = dict(steps=DDP_CLI_STEPS, bit_equal=True,
+                                  seconds=cli_s)
+    got = [torch.load(f'{tmp}/ddp{r}.pt', weights_only=False)
+           for r in range(2)]
+    tols = {'sr': [_allowed_gap(sr_ref)] * len(TRAIN_KINDS),
+            'jpeg': [DDP_JPEG_TOL['d'], DDP_JPEG_TOL['g']]}
+    failed = []
+    for work in ('sr', 'jpeg'):
+        rows, pgap, bad = _ddp_compare(one[work], [g[work] for g in got],
+                                       tols[work])
+        failed += [f'{work} {b}' for b in bad]
+        for row in rows:
+            emit('train_ddp_step', workload=work, device=name, **row)
+        rows_f, caught = _fault_rows(one[work], got[0][f'{work}_local_bn'],
+                                     tols[work])
+        for row in rows_f:
+            emit('train_ddp_fault', workload=work, fault='local batch norm',
+                 device=name, caught=caught, **row)
+        if not caught:
+            failed.append(f'{work}: the planted local batch norm passed '
+                          f'{[r["grad_gap"] for r in rows_f]}')
+        rec[work] = dict(steps=[r['step'] for r in rows], param_gap=pgap,
+                         launches_per_rank={r['step']: r['launches_per_rank']
+                                            for r in rows},
+                         ms_per_iteration_one={
+                             k: sum(r['one_ms'] for r in rows
+                                    if r['step'].endswith(k))
+                             for k in ('single', 'dual')},
+                         ms_per_iteration_ranks={
+                             k: sum(max(r['rank_ms']) for r in rows
+                                    if r['step'].endswith(k))
+                             for k in ('single', 'dual')})
+    rec.update(batch=DDP_BATCH, ranks=2, backend='gloo', one_s=one_s,
+               ranks_s=ranks_s, phase_s=time.perf_counter() - t_phase)
+    emit('train_ddp', device=name, **rec)
+    check(not failed, f'train_ddp: {failed}')
+    return rec
+
+
+def _tree_diffs(a, b, path='') -> list:
+    """Where two checkpoint trees differ (tensors bit for bit)."""
+    import torch
+    if isinstance(b, dict):
+        if a.keys() != b.keys():
+            return [path + '/keys']
+        return [d for k in b for d in _tree_diffs(a[k], b[k],
+                                                  f'{path}/{k}')]
+    if isinstance(b, (list, tuple)):
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _tree_diffs(x, y, f'{path}/{i}')]
+    if isinstance(b, torch.Tensor):
+        return [] if torch.equal(a, b) else [path]
+    return [] if a == b else [path]
 
 
 def main() -> int:
@@ -3219,7 +3906,7 @@ def _phases(device, name, smi, tmp) -> int:
     even, even_taps = phase_even_taps(device)
     train_records, train_kern, train_taps, d_state = phase_train(device,
                                                                  name)
-    phase_train_reference(device, name, d_state)
+    sr_ref = phase_train_reference(device, name, d_state)
     phase_train_cli(device, name, f'{tmp}/train_ckpt')
     jpeg_bytes = phase_jpeg_codec(device, name)
     phase_jpeg_edit(device, name, jpeg_bytes)
@@ -3231,6 +3918,9 @@ def _phases(device, name, smi, tmp) -> int:
     web = web_rows(phase_web_sr(device, name, tmp))
     phase_web_jpeg(device, name, jpeg_bytes, tmp)
     phase_scripts(device, name, tmp, f'{tmp}/train_ckpt')
+    phase_models(name)
+    phase_native_resize(name)
+    ddp = phase_train_ddp(device, name, tmp, sr_ref)
     train = train_rows(train_records, train_kern, train_taps)
 
     # launches: the total over the forwards of the path that runs the
@@ -3253,6 +3943,7 @@ def _phases(device, name, smi, tmp) -> int:
         row(f'sepfilter_{k}', key, launches, forwards, **sep, **extra,
             graph_ms=kern[key]['graph_ms'], train=train[f'sepfilter_{k}'],
             web=web[f'sepfilter_{k}'],
+            ddp=ddp_launches(ddp, f'sepfilter_{k}'),
             **{f'even_taps_{f}': even[EVEN_ROW[k]][f] for f in (
                 'taps', 'shape', 'max_abs_err', 'ms', 'graph_ms',
                 'bound_ms')})
@@ -3276,6 +3967,7 @@ def _phases(device, name, smi, tmp) -> int:
             web=web['rdb']),
         dict(taps_row(kern, edit_runs), train=train['sepfilter_taps'],
              web=web['sepfilter_taps'],
+             ddp=ddp_launches(ddp, 'sepfilter_taps'),
              even_taps_max_rel_err=max(r['max_rel_err']
                                        for r in even_taps.values()),
              even_taps_ms=sum(r['ms'] for r in even_taps.values()),

@@ -24,7 +24,11 @@ Usage::
       --y_nf 320 --y_ckpt EXP/ckpt
 
 It runs on the current CUDA device unless ``--device cpu`` is given, in
-fp32 with TF32 off.  A Y checkpoint loads in ``eval_jpeg --checkpoint``.
+fp32 with TF32 off.  Under ``torchrun --nproc_per_node N`` both phases
+train data-parallel, as ``train_sr`` does
+(:mod:`exsr_torch.parallel.dist`): ``--batch`` is the global batch, which
+N must divide, and rank 0 alone writes.  A Y checkpoint loads in
+``eval_jpeg --checkpoint``.
 """
 from __future__ import annotations
 
@@ -108,9 +112,10 @@ def main(argv=None):
     if args.chroma:
         return _main_chroma(args)
     from exsr_torch.data.datasets import DataLoader, JPEGDataset
-    from exsr_torch.device import full_fp32, resolve_device
+    from exsr_torch.device import full_fp32
     from exsr_torch.models.dncnn import DnCNN, DnCNNConfig, \
         DnCNNDiscriminator
+    from exsr_torch.parallel.dist import RankRun
     from exsr_torch.train.checkpoints import CheckpointManager
     from exsr_torch.train.controller import GANController
     from exsr_torch.train.decomp import DecompConfig, DecompTrainer
@@ -119,7 +124,9 @@ def main(argv=None):
     from exsr_torch.utils.misc import (install_sigint_stop, read_scalars,
                                        stage_scalars)
 
-    device = resolve_device(args.device)
+    run = RankRun(args.device, args.ckpt_freq)
+    run.check_batch(args.batch)
+    device = run.device
     latent_channels = (int(args.latent_channels)
                        if args.latent_channels.isdigit()
                        else args.latent_channels)
@@ -131,12 +138,13 @@ def main(argv=None):
     d = DnCNNDiscriminator(n_channels=args.nf, depth=args.nb,
                            expected_input_size=args.patch // 8,
                            norm='layer', seed=args.seed + 1)
-    trainer = DecompTrainer(cfg)
+    trainer = DecompTrainer(cfg, dp=run.dp)
     state = trainer.init_state(g, d, seed=args.seed + 2, device=device)
     ctl = GANController(d_update_ratio=10, d_valid_steps_4_g=10,
                         d_verification=args.d_verification,
                         min_mean_d_correct=args.min_d_correct)
-    os.makedirs(args.exp_dir, exist_ok=True)
+    if run.main:
+        os.makedirs(args.exp_dir, exist_ok=True)
     mlog = MetricLog()
     log_path = os.path.join(args.exp_dir, 'logs.npz')
     ckpts = CheckpointManager(os.path.join(args.exp_dir, 'ckpt'),
@@ -153,7 +161,10 @@ def main(argv=None):
             ctl.d_verified = bool(ctl_state.get('d_verified', False))
         if os.path.exists(log_path):
             mlog.load(log_path, max_step=ctl.step)
-        print('resumed at step', ctl.step)
+        run.say('resumed at step', ctl.step)
+        if trainer.dp is not None:
+            trainer.dp.broadcast_(state.g)
+            trainer.dp.broadcast_(state.d)
 
     qf_spec = (((args.qf_min, args.qf_max), 1.0),)
     ds = JPEGDataset(root=args.data_dir, patch_size=args.patch,
@@ -188,7 +199,7 @@ def main(argv=None):
                'psnr_val': round(float(np.mean(psnrs)), 4)}
         if stds:
             rec['per_pix_STD_val'] = round(float(np.mean(stds)), 5)
-        print(json.dumps(rec))
+        run.say(json.dumps(rec))
         mlog.append(ctl.step, **{k: v for k, v in rec.items()
                                  if k != 'step'})
 
@@ -210,7 +221,7 @@ def main(argv=None):
     # final checkpoint is still written
     stop_requested = install_sigint_stop()
     for batch in loader.stream(0):
-        if ctl.step >= cfg.niter or stop_requested():
+        if ctl.step >= cfg.niter or run.stop(stop_requested()):
             break
         batch = _to_device(batch, device)
         dual = (cfg.optimal_z_weight is not None
@@ -232,21 +243,23 @@ def main(argv=None):
         if ctl.step % args.print_freq == 0:
             rate = args.print_freq / max(time.time() - t0, 1e-9)
             t0 = time.time()
-            print(json.dumps({'step': ctl.step,
-                              'steps_per_s': round(rate, 3)}))
+            run.say(json.dumps({'step': ctl.step,
+                                'steps_per_s': round(rate, 3)}))
             mlog.append(ctl.step, **log_accum)
-            mlog.save(log_path)
-        if val_ds is not None and ctl.step % args.val_freq == 0:
+            if run.main:
+                mlog.save(log_path)
+        if val_ds is not None and ctl.step % args.val_freq == 0 and run.main:
             validate(state)
-        ckpts.save(ctl.step, state, controller_state=_ctl_snapshot(ctl))
+        run.save(ckpts, ctl.step, state, controller_state=_ctl_snapshot(ctl))
     stop_requested.restore()
     apply_pending()
-    ckpts.save(ctl.step, state, controller_state=_ctl_snapshot(ctl),
-               force=True)
+    run.save(ckpts, ctl.step, state, controller_state=_ctl_snapshot(ctl),
+             force=True)
     ckpts.wait()
-    mlog.save(log_path)
-    mlog.dashboard(os.path.join(args.exp_dir, 'dashboards'))
-    print('JPEG training done at step', ctl.step)
+    if run.main:
+        mlog.save(log_path)
+        mlog.dashboard(os.path.join(args.exp_dir, 'dashboards'))
+    print('JPEG training done at step', ctl.step, flush=True)
 
 
 def _main_chroma(args):
@@ -255,9 +268,10 @@ def _main_chroma(args):
     of real and generated."""
     from exsr_torch.apps.eval_jpeg import load_generator_params
     from exsr_torch.data.datasets import DataLoader, JPEGDataset
-    from exsr_torch.device import full_fp32, resolve_device
+    from exsr_torch.device import full_fp32
     from exsr_torch.models.dncnn import DnCNN, DnCNNConfig, \
         DnCNNDiscriminator
+    from exsr_torch.parallel.dist import RankRun
     from exsr_torch.train.checkpoints import CheckpointManager
     from exsr_torch.train.decomp import DecompConfig
     from exsr_torch.train.decomp_chroma import ChromaDecompTrainer
@@ -265,7 +279,9 @@ def _main_chroma(args):
     from exsr_torch.utils.metrics import calculate_psnr
     from exsr_torch.utils.misc import fetch_scalars
 
-    device = resolve_device(args.device)
+    run = RankRun(args.device, args.ckpt_freq)
+    run.check_batch(args.batch)
+    device = run.device
     cfg = DecompConfig(patch_size=args.patch, latent_channels=0,
                        chroma_mode=True, niter=args.niter)
     gy = DnCNN(DnCNNConfig(n_channels=args.y_nf or args.nf,
@@ -274,10 +290,10 @@ def _main_chroma(args):
                seed=args.seed + 7)
     if args.y_ckpt:
         gy.load_state_dict(load_generator_params(args.y_ckpt))
-        print(f'conditioning on Y generator from {args.y_ckpt}')
+        run.say(f'conditioning on Y generator from {args.y_ckpt}')
     else:
-        print('no --y_ckpt: conditioning on RANDOM Y weights '
-              '(pipeline checks only)')
+        run.say('no --y_ckpt: conditioning on RANDOM Y weights '
+                '(pipeline checks only)')
     gc = DnCNN(DnCNNConfig(n_channels=args.nf, depth=args.nb,
                            in_nc=256 + 128, out_nc=2 * 64,
                            chroma_generator=True, block_size=8,
@@ -286,9 +302,10 @@ def _main_chroma(args):
                            expected_input_size=args.patch // 16,
                            norm='layer', in_nc=256 + 128,
                            seed=args.seed + 1)
-    trainer = ChromaDecompTrainer(cfg, gy)
+    trainer = ChromaDecompTrainer(cfg, gy, dp=run.dp)
     state = trainer.init_state(gc, d, seed=args.seed + 2, device=device)
-    os.makedirs(args.exp_dir, exist_ok=True)
+    if run.main:
+        os.makedirs(args.exp_dir, exist_ok=True)
     mlog = MetricLog()
     log_path = os.path.join(args.exp_dir, 'logs.npz')
     ckpts = CheckpointManager(os.path.join(args.exp_dir, 'ckpt'),
@@ -298,7 +315,10 @@ def _main_chroma(args):
         state = ckpts.restore(state)
         if os.path.exists(log_path):
             mlog.load(log_path, max_step=state.step)
-        print('resumed at step', state.step)
+        run.say('resumed at step', state.step)
+        if trainer.dp is not None:
+            trainer.dp.broadcast_(state.g)
+            trainer.dp.broadcast_(state.d)
 
     qf_spec = (((args.qf_min, args.qf_max), 1.0),)
     ds = JPEGDataset(root=args.data_dir, patch_size=args.patch, chroma=True,
@@ -325,7 +345,7 @@ def _main_chroma(args):
                                         item['uncomp'][:, :, 1:]))
         rec = {'step': state.step,
                'psnr_chroma_val': round(float(np.mean(psnrs)), 4)}
-        print(json.dumps(rec))
+        run.say(json.dumps(rec))
         mlog.append(state.step, psnr_chroma_val=rec['psnr_chroma_val'])
 
     t0 = time.time()
@@ -340,19 +360,22 @@ def _main_chroma(args):
         if step % args.print_freq == 0:
             rate = args.print_freq / max(time.time() - t0, 1e-9)
             t0 = time.time()
-            print(json.dumps({'step': step, 'steps_per_s': round(rate, 3),
-                              **{k: round(v, 5)
-                                 for k, v in log_accum.items()}}))
+            run.say(json.dumps({'step': step,
+                                'steps_per_s': round(rate, 3),
+                                **{k: round(v, 5)
+                                   for k, v in log_accum.items()}}))
             mlog.append(step, **log_accum)
-            mlog.save(log_path)
-        if val_ds is not None and step % args.val_freq == 0:
+            if run.main:
+                mlog.save(log_path)
+        if val_ds is not None and step % args.val_freq == 0 and run.main:
             validate()
-        ckpts.save(step, state)
-    ckpts.save(state.step, state, force=True)
+        run.save(ckpts, step, state)
+    run.save(ckpts, state.step, state, force=True)
     ckpts.wait()
-    mlog.save(log_path)
-    mlog.dashboard(os.path.join(args.exp_dir, 'dashboards'))
-    print('chroma training done at step', state.step)
+    if run.main:
+        mlog.save(log_path)
+        mlog.dashboard(os.path.join(args.exp_dir, 'dashboards'))
+    print('chroma training done at step', state.step, flush=True)
 
 
 if __name__ == '__main__':

@@ -11,9 +11,18 @@ Usage::
       --scale 4 [--opt options.json] [--niter N] [--batch 16] ...
 
 It runs on the current CUDA device unless ``--device cpu`` is given, in
-fp32 with TF32 off, as ``exsr`` trains.  ``--warm_g`` and ``--checkpoint``
-style inputs are a directory of the port's checkpoints or an ``exsr``
-generator exported as ``.npz``.
+fp32 with TF32 off, as ``exsr`` trains.
+
+Data parallelism: under ``torchrun --nproc_per_node N`` each process
+trains on its card (``cuda:LOCAL_RANK``; gloo ranks on the CPU with
+``--device cpu``) through :mod:`exsr_torch.parallel.dist`.  ``--batch``
+stays the global batch, which N must divide (``exsr`` would use fewer
+devices instead); every rank collates the whole batch from the same seed
+and keeps its slice, the gradients and metrics are averaged over ranks,
+and rank 0 alone writes checkpoints, logs and validation.
+
+``--warm_g`` and ``--checkpoint`` style inputs are a directory of the
+port's checkpoints or an ``exsr`` generator exported as ``.npz``.
 """
 from __future__ import annotations
 
@@ -98,10 +107,11 @@ def main(argv=None):
     from exsr_torch.apps.eval_sr import PLAIN_ARCHS, load_generator_params
     from exsr_torch.cem.cem import CEM, CEMConf, cem_wrap
     from exsr_torch.data.datasets import DataLoader, LRHRDataset
-    from exsr_torch.device import full_fp32, resolve_device
+    from exsr_torch.device import full_fp32
     from exsr_torch.models.discriminators import (DiscriminatorVGG128,
                                                   PatchGANDiscriminator)
     from exsr_torch.models.rrdb import RRDBNet
+    from exsr_torch.parallel.dist import RankRun
     from exsr_torch.train.checkpoints import CheckpointManager
     from exsr_torch.train.controller import GANController
     from exsr_torch.train.srragan import SRRaGANTrainer, TrainConfig
@@ -113,7 +123,8 @@ def main(argv=None):
 
     p = _parser()
     args = p.parse_args(argv)
-    device = resolve_device(args.device)
+    run = RankRun(args.device, args.ckpt_freq)
+    device, say = run.device, run.say
     cfg = TrainConfig(scale=args.scale, patch_size=args.patch)
     use_cem, exp = True, None
     if args.opt:
@@ -158,10 +169,12 @@ def main(argv=None):
                              'feature_weight': None, 'gan_weight': 0.0,
                              'optimal_z_weight': None,
                              'latent_weight': None, 'lr_g': 2e-4})
+    for accum in (cfg.grad_accum_d, cfg.grad_accum_g):
+        run.check_batch(args.batch, max(1, accum))
     if args.collapse_guard is None:
         args.collapse_guard = default_collapse_guard(cfg.gan_type)
-    print(f'collapse_guard armed: {args.collapse_guard} '
-          f'(gan_type={cfg.gan_type})', flush=True)
+    say(f'collapse_guard armed: {args.collapse_guard} '
+        f'(gan_type={cfg.gan_type})')
 
     nz = cfg.num_latent_channels
     if use_cem:
@@ -228,13 +241,14 @@ def main(argv=None):
         if args.vgg_pth:
             vgg.load_state_dict(load_torch_vgg19_features(args.vgg_pth))
         else:
-            print('feature loss active with RANDOM VGG weights: pass '
-                  '--vgg_pth for the reference behavior')
+            say('feature loss active with RANDOM VGG weights: pass '
+                '--vgg_pth for the reference behavior')
         f_apply = vgg.to(device)
 
     trainer = SRRaGANTrainer(
         cfg, g_apply, margins_hr=margins_hr, f_apply=f_apply,
-        g_apply_decomp=g_apply_decomp if decomposed_d else None)
+        g_apply_decomp=g_apply_decomp if decomposed_d else None,
+        dp=run.dp)
     state = trainer.init_state(g, d, seed=args.seed + 2, device=device)
     ctl = GANController(
         d_update_ratio=cfg.d_update_ratio,
@@ -247,11 +261,12 @@ def main(argv=None):
         lr_gamma=cfg.lr_gamma,
         base_lr=min(cfg.lr_g, cfg.lr_d))
 
-    os.makedirs(args.exp_dir, exist_ok=True)
+    if run.main:
+        os.makedirs(args.exp_dir, exist_ok=True)
     mlog = MetricLog()
     log_path = os.path.join(args.exp_dir, 'logs.npz')
     tb = (TensorboardWriter(os.path.join(args.exp_dir, 'tb'))
-          if args.tensorboard else None)
+          if args.tensorboard and run.main else None)
     ckpts = CheckpointManager(os.path.join(args.exp_dir, 'ckpt'),
                               max_to_keep=args.max_keep,
                               save_interval_steps=args.ckpt_freq)
@@ -267,11 +282,15 @@ def main(argv=None):
         if os.path.exists(log_path):
             # drop the curve points past the restored step
             mlog.load(log_path, max_step=ctl.step)
-        print(f'resumed at step {ctl.step}')
+        say(f'resumed at step {ctl.step}')
     elif args.warm_g:
         # a pretrained generator with a fresh D and optimizers
         state.g.load_state_dict(load_generator_params(args.warm_g, which_g))
-        print(f'warm-started G from {args.warm_g}')
+        say(f'warm-started G from {args.warm_g}')
+    if trainer.dp is not None:
+        # every rank read the same files; rank 0's weights are the run's
+        trainer.dp.broadcast_(state.g)
+        trainer.dp.broadcast_(state.d)
 
     ds = LRHRDataset(hr_root=args.hr_dir, lr_root=args.lr_dir,
                      scale=cfg.scale, patch_size=cfg.patch_size, train=True)
@@ -305,7 +324,7 @@ def main(argv=None):
             stds.append(float(outs.std(dim=0, correction=0).mean()))
         rec = {'psnr_val': float(np.mean(psnrs)),
                'per_pix_STD_val': float(np.mean(stds))}
-        print(json.dumps({'step': step, **rec}))
+        say(json.dumps({'step': step, **rec}))
         mlog.append(step, **rec)
         if tb is not None:
             tb.log(step, **rec)
@@ -337,7 +356,7 @@ def main(argv=None):
     t_last = time.perf_counter()
     stop_requested = install_sigint_stop()
     for batch in loader.stream(0):
-        if ctl.step >= cfg.niter or stop_requested():
+        if ctl.step >= cfg.niter or run.stop(stop_requested()):
             break
         batch = {k: torch.from_numpy(batch[k]).to(device)
                  for k in ('lr', 'hr')}
@@ -378,16 +397,16 @@ def main(argv=None):
                 s_, v_ = ctl.log['D_loss_STD'][-1]
                 mlog.append(s_, D_loss_STD=v_)
             if too_low:
-                print('LR below 1e-8: stopping (instability).')
+                say('LR below 1e-8: stopping (instability).')
                 return
             if not rollback and args.collapse_guard and \
                     ctl.check_critic_collapse():
                 too_low = ctl.halve_lr()
                 rollback = True
-                print('critic collapse detected '
-                      '(|D_logits_diff| ~ 0 with inflating |l_d|)')
+                say('critic collapse detected '
+                    '(|D_logits_diff| ~ 0 with inflating |l_d|)')
                 if too_low:
-                    print('LR below 1e-8: stopping (instability).')
+                    say('LR below 1e-8: stopping (instability).')
                     return
             if rollback:
                 # the discarded step's staged metrics must not reach the
@@ -397,8 +416,8 @@ def main(argv=None):
                 back_step, state = ckpts.restore_before(
                     state, ctl.step - cfg.steps_4_loss_std)
                 state.lr_scale = ctl.lr_scale
-                print(f'instability rollback to step {back_step}, '
-                      f'lr_scale={ctl.lr_scale}')
+                say(f'instability rollback to step {back_step}, '
+                    f'lr_scale={ctl.lr_scale}')
         if ctl.step % args.print_freq == 0:
             log_accum['steps_per_s'] = args.print_freq / max(
                 time.time() - t0, 1e-9)
@@ -406,24 +425,27 @@ def main(argv=None):
             for k in tacc:
                 log_accum[k + '_ms'] = 1e3 * tacc[k] / args.print_freq
                 tacc[k] = 0.0
-            print(json.dumps({'step': ctl.step, **{
+            say(json.dumps({'step': ctl.step, **{
                 k: round(v, 5) for k, v in log_accum.items()}}))
             mlog.append(ctl.step, **log_accum)
             if tb is not None:
                 tb.log(ctl.step, **log_accum)
-            mlog.save(log_path)
-        if val_ds and ctl.step % args.val_freq == 0:
+            if run.main:
+                mlog.save(log_path)
+        if val_ds and ctl.step % args.val_freq == 0 and run.main:
             validate(ctl.step)
-        ckpts.save(ctl.step, state, controller_state=ctl_snapshot())
+        run.save(ckpts, ctl.step, state, controller_state=ctl_snapshot())
     stop_requested.restore()
     apply_pending()
-    ckpts.save(ctl.step, state, force=True, controller_state=ctl_snapshot())
+    run.save(ckpts, ctl.step, state, force=True,
+             controller_state=ctl_snapshot())
     ckpts.wait()
-    mlog.save(log_path)
-    mlog.dashboard(os.path.join(args.exp_dir, 'dashboards'))
+    if run.main:
+        mlog.save(log_path)
+        mlog.dashboard(os.path.join(args.exp_dir, 'dashboards'))
     if tb is not None:
         tb.close()
-    print('training done at step', ctl.step)
+    print('training done at step', ctl.step, flush=True)
 
 
 if __name__ == '__main__':

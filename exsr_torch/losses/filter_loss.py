@@ -107,9 +107,15 @@ class FilterLossConfig:
     noise_std: float = 1.0 / 255.0
 
 
+def _global_values(measured: torch.Tensor, dp) -> torch.Tensor:
+    """The ``[C, B]`` values the ring takes: with data parallelism every
+    rank's, in global sample order (the bounds differentiate them)."""
+    return measured if dp is None else dp.gather(measured, 1)
+
+
 def filter_loss(cfg: FilterLossConfig, stats: RatioStats,
                 sr: torch.Tensor, hr: torch.Tensor, z: torch.Tensor,
-                svd: dict[str, torch.Tensor] | None = None
+                svd: dict[str, torch.Tensor] | None = None, dp=None
                 ) -> tuple[torch.Tensor, RatioStats]:
     """Per-image L_struct and the updated running statistics.
 
@@ -119,12 +125,16 @@ def filter_loss(cfg: FilterLossConfig, stats: RatioStats,
     made from.  The loss is ``[B, C]``, or ``[C]`` in the SVD mode (a mean
     over the valid images).  An integer ``latent_channels`` has no
     structural mapping and raises.
+
+    ``dp`` (a data-parallel rank; the tensors its slice of the batch): the
+    ring takes the global batch's values, and the SVD mode's mean is
+    scaled so that its mean over ranks is the global batch's.
     """
     mode = cfg.latent_channels
     cur_z = z.mean(dim=(1, 2))  # [B, C]
 
     if mode == 'STD_directional':
-        return _std_directional(cfg, stats, sr, hr, cur_z)
+        return _std_directional(cfg, stats, sr, hr, cur_z, dp)
 
     m_sr = structure_tensor_moments(sr)   # [3, B]
     m_hr = structure_tensor_moments(hr)
@@ -136,7 +146,7 @@ def filter_loss(cfg: FilterLossConfig, stats: RatioStats,
         measured = torch.stack([lam0_s / (lam0_h + cfg.noise_std),
                                 lam1_s / (lam1_h + cfg.noise_std),
                                 th_s], dim=0)  # [3, B]
-        new_stats = stats.update(measured)
+        new_stats = stats.update(_global_values(measured, dp))
         lower, upper = new_stats.bounds()
         mid = (upper + lower) / 2.0
         span = upper - lower
@@ -156,8 +166,12 @@ def filter_loss(cfg: FilterLossConfig, stats: RatioStats,
                            (dt - 1.0).abs())
         diffs = torch.stack([d0, d1, d2], dim=1)  # [B, 3]
         w = valid.to(diffs.dtype)[:, None]
-        loss = torch.sum(diffs * w, dim=0) / torch.clamp(w.sum(), min=1.0)
-        return loss, new_stats
+        if dp is None:
+            return (torch.sum(diffs * w, dim=0)
+                    / torch.clamp(w.sum(), min=1.0)), new_stats
+        count = dp.all_sum(w.sum().detach())
+        return (torch.sum(diffs * w, dim=0) * dp.world
+                / torch.clamp(count, min=1.0)), new_stats
 
     if mode == 'SVDinNormedOut_structure_tensor':
         normalizer = torch.sqrt(m_hr[0]) * torch.sqrt(m_hr[1])  # [B]
@@ -175,7 +189,7 @@ def filter_loss(cfg: FilterLossConfig, stats: RatioStats,
             "'structure_tensor', 'SVD_structure_tensor', "
             "'STD_directional') or disable latent_weight")
 
-    new_stats = stats.update(measured)
+    new_stats = stats.update(_global_values(measured, dp))
     lower, upper = new_stats.bounds()
     mid = (upper + lower) / 2.0
     span = upper - lower
@@ -183,7 +197,7 @@ def filter_loss(cfg: FilterLossConfig, stats: RatioStats,
     return (measured.T - target).abs(), new_stats
 
 
-def _std_directional(cfg, stats, sr, hr, cur_z):
+def _std_directional(cfg, stats, sr, hr, cur_z, dp=None):
     """``'STD_directional'``: channel 0 controls the STD ratio of the
     directional residual, channels 1:3 the direction and magnitude."""
     def central_diffs(img):
@@ -206,7 +220,7 @@ def _std_directional(cfg, stats, sr, hr, cur_z):
         (hr[:, 1:-1, 1:-1] - d_h).abs().mean(dim=(1, 2, 3))
         + cfg.noise_std)
     measured = torch.stack([std_ratio, mag_ratio], dim=0)  # [2, B]
-    new_stats = stats.update(measured)
+    new_stats = stats.update(_global_values(measured, dp))
     lower, upper = new_stats.bounds()
     mid, span = (upper + lower) / 2.0, upper - lower
     mag_normal = torch.sqrt(torch.sum(cur_z[:, 1:3] ** 2, dim=1))

@@ -1,12 +1,17 @@
 """Weight bridges from ``exsr``'s parameters to the port's modules: the
-RRDBNet (:func:`from_exsr_params`), ``MSRResNet``, ``SRResNet`` and
-``VGG19Features`` (:func:`from_exsr_flat_params`), the two
-discriminators of the SR trainer (:func:`d_from_exsr_vars`), and the
-explorable-JPEG DnCNN generator and discriminator
-(:func:`dncnn_from_exsr_vars`, :func:`dncnn_d_from_exsr_vars`), and
+RRDBNet (:func:`from_exsr_params`), ``MSRResNet``, ``SRResNet``,
+``VGG19Features`` and ``MINCNet`` (:func:`from_exsr_flat_params`), the
+critics (:func:`d_from_exsr_vars`: the SR trainer's two and the three
+fixed-size ones), the explorable-JPEG DnCNN generator and discriminator
+(:func:`dncnn_from_exsr_vars`, :func:`dncnn_d_from_exsr_vars`),
 KernelGAN's generator and critic (:func:`kernelgan_g_from_exsr_vars`,
-:func:`kernelgan_d_from_exsr_vars`), and the SVHN digit classifier
-(:func:`svhn_from_exsr_vars`).
+:func:`kernelgan_d_from_exsr_vars`), the SVHN digit classifier
+(:func:`svhn_from_exsr_vars`), and ``SFTNet``, ``SegNet``, ``EResNet``
+and ``ResNet101Features`` (:func:`sft_from_exsr_vars`,
+:func:`segnet_from_exsr_vars`, :func:`eresnet_from_exsr_vars`,
+:func:`resnet101_from_exsr_vars`).  All but the RRDBNet's go through
+:func:`_flax_state`, which maps a flax variable tree onto the port's
+module names.
 
 The reference's own torch checkpoints (``.pth``) convert straight to the
 port's state dicts: :func:`load_torch_checkpoint` reads one,
@@ -46,6 +51,55 @@ def _conv(entry, index=None) -> dict:
             'bias': torch.from_numpy(np.array(bias))}
 
 
+def _flax_state(variables, rename=lambda path: path) -> dict:
+    """A state dict from a flax variable tree whose module paths name the
+    port's modules after ``rename`` (a function of the dotted path): a
+    module holding ``kernel`` is a conv (HWIO -> OIHW) or a dense layer
+    (``[in, out]`` -> ``[out, in]``), one holding ``scale`` a batch norm;
+    ``batch_stats`` give its running statistics and ``spectral`` a
+    spectral-norm conv's ``u``."""
+    out = {}
+
+    def walk(tree, path, collection):
+        leaf = {'kernel', 'scale', 'mean', 'u'} & set(tree)
+        if not leaf:
+            for k, v in tree.items():
+                walk(v, path + [k], collection)
+            return
+        name = rename('.'.join(path))
+        if collection == 'batch_stats':
+            part = {'running_mean': tree['mean'], 'running_var': tree['var']}
+        elif collection == 'spectral':
+            part = {'u': tree['u']}
+        elif 'kernel' in tree:
+            k = np.asarray(tree['kernel'])
+            part = {'weight': k.transpose(3, 2, 0, 1) if k.ndim == 4
+                    else k.T}
+            if 'bias' in tree:
+                part['bias'] = tree['bias']
+        else:
+            part = {'weight': tree['scale'], 'bias': tree['bias']}
+        out.update({f'{name}.{k}': torch.from_numpy(np.array(v))
+                    for k, v in part.items()})
+
+    for collection in ('params', 'batch_stats', 'spectral'):
+        walk(variables.get(collection) or {}, [], collection)
+    return out
+
+
+def _renamer(*rules):
+    """``rename`` for :func:`_flax_state`: ``re.sub`` of each ``(pattern,
+    replacement)`` in turn."""
+    def rename(path):
+        for pattern, repl in rules:
+            path = re.sub(pattern, repl, path)
+        return path
+    return rename
+
+
+_CONV_BLOCK = (r'\bConv_0\b', 'conv'), (r'\bBatchNorm_0\b', 'bn')
+
+
 def from_exsr_params(tree) -> dict:
     """``exsr`` RRDBNet params (numpy tree) -> the port's state dict."""
     p = tree['params'] if 'params' in tree else tree
@@ -69,77 +123,35 @@ def from_exsr_params(tree) -> dict:
 
 def from_exsr_flat_params(tree) -> dict:
     """``exsr`` params whose convs all sit at the top level of the tree
-    (``MSRResNet``, ``SRResNet``, ``VGG19Features``; numpy tree) -> the
-    state dict of the port's module of the same name."""
-    p = tree['params'] if 'params' in tree else tree
-    return {f'{name}.{k}': v for name in p
-            for k, v in _conv(p[name]).items()}
-
-
-def _dense(entry) -> dict:
-    return {'weight': torch.from_numpy(np.array(
-                np.asarray(entry['kernel']).T)),
-            'bias': torch.from_numpy(np.array(entry['bias']))}
-
-
-def _batch_norm(params, stats) -> dict:
-    out = {'weight': params['scale'], 'bias': params['bias']}
-    if stats is not None:
-        out.update(running_mean=stats['mean'], running_var=stats['var'])
-    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+    (``MSRResNet``, ``SRResNet``, ``VGG19Features``, ``MINCNet``,
+    ``KGGenerator``; numpy tree) -> the state dict of the port's module
+    of the same name."""
+    return _flax_state({'params': tree['params'] if 'params' in tree
+                        else tree})
 
 
 def d_from_exsr_vars(d_vars) -> dict:
-    """``exsr``'s discriminator variables (``{'params', 'batch_stats'}``,
-    numpy trees) -> the state dict of the port's
-    :class:`~exsr_torch.models.discriminators.DiscriminatorVGG128` or
-    :class:`~exsr_torch.models.discriminators.PatchGANDiscriminator`,
-    whichever the tree's names say (``ConvBlock``s hold ``Conv_0`` and
-    ``BatchNorm_0``; the PatchGAN's convs hold their kernels directly)."""
-    p = d_vars['params']
-    stats = d_vars.get('batch_stats') or {}
-    out = {}
-    for name, entry in p.items():
-        if name.startswith('Dense_'):
-            mod = {'Dense_0': 'fc0', 'Dense_1': 'fc1'}[name]
-            out.update({f'{mod}.{k}': v for k, v in _dense(entry).items()})
-        elif 'Conv_0' in entry:
-            out.update({f'{name}.conv.{k}': v
-                        for k, v in _conv(entry['Conv_0']).items()})
-            if 'BatchNorm_0' in entry:
-                bn = _batch_norm(entry['BatchNorm_0'], (stats.get(name) or
-                                 {}).get('BatchNorm_0'))
-                out.update({f'{name}.bn.{k}': v for k, v in bn.items()})
-        else:
-            out.update({f'{name}.{k}': v for k, v in _conv(entry).items()})
-    return out
+    """``exsr``'s discriminator variables (``params`` and ``batch_stats``
+    or ``spectral``, numpy trees) -> the state dict of the port's critic
+    of the same name: ``DiscriminatorVGG128``, ``PatchGANDiscriminator``,
+    ``DiscriminatorVGG``, ``DiscriminatorVGG128SN`` or ``ACDVGGBN96``
+    (``ConvBlock``s hold ``Conv_0`` and ``BatchNorm_0``, ``Dense_0`` /
+    ``Dense_1`` are ``fc0`` / ``fc1``, every other module keeps its
+    name)."""
+    return _flax_state(d_vars, _renamer(*_CONV_BLOCK,
+                                        (r'^Dense_(\d)$', r'fc\1')))
 
 
-def _dncnn_common(variables) -> dict:
-    """``conv{i}`` (with or without a bias) and ``BatchNorm_{j}`` (with its
-    running statistics) of a DnCNN's variables."""
-    p = variables['params']
-    stats = variables.get('batch_stats') or {}
-    out = {}
-    for name, entry in p.items():
-        if name.startswith('conv'):
-            out[f'{name}.weight'] = torch.from_numpy(np.array(
-                np.asarray(entry['kernel']).transpose(3, 2, 0, 1)))
-            if 'bias' in entry:
-                out[f'{name}.bias'] = torch.from_numpy(np.array(
-                    entry['bias']))
-        elif name.startswith('BatchNorm_'):
-            j = int(name[len('BatchNorm_'):])
-            bn = _batch_norm(entry, stats.get(name))
-            out.update({f'bns.{j}.{k}': v for k, v in bn.items()})
-    return out
+_DNCNN = (r'^BatchNorm_(\d+)$', r'bns.\1'), (r'^Dense_0$', 'fc')
 
 
 def dncnn_from_exsr_vars(variables) -> dict:
     """``exsr``'s DnCNN generator variables (``{'params'[,
     'batch_stats']}``, numpy trees) -> the state dict of
-    :class:`exsr_torch.models.dncnn.DnCNN`."""
-    return _dncnn_common(variables)
+    :class:`exsr_torch.models.dncnn.DnCNN`: ``conv{i}`` (with or without
+    a bias), ``BatchNorm_{j}`` as ``bns.{j}`` with its running
+    statistics."""
+    return _flax_state(variables, _renamer(*_DNCNN))
 
 
 def dncnn_d_from_exsr_vars(variables) -> dict:
@@ -147,25 +159,13 @@ def dncnn_d_from_exsr_vars(variables) -> dict:
     ``batch_stats`` and ``spectral`` where it has them) -> the state dict
     of :class:`exsr_torch.models.dncnn.DnCNNDiscriminator`: the FC head's
     ``Dense_0`` and spectral norm's ``u`` vectors besides the convs."""
-    out = _dncnn_common(variables)
-    if 'Dense_0' in variables['params']:
-        out.update({f'fc.{k}': v for k, v in
-                    _dense(variables['params']['Dense_0']).items()})
-    for name, entry in (variables.get('spectral') or {}).items():
-        out[f'{name}.u'] = torch.from_numpy(np.array(entry['u']))
-    return out
-
-
-def _kernel(entry) -> torch.Tensor:
-    return torch.from_numpy(np.array(
-        np.asarray(entry['kernel']).transpose(3, 2, 0, 1)))
+    return _flax_state(variables, _renamer(*_DNCNN))
 
 
 def kernelgan_g_from_exsr_vars(variables) -> dict:
     """``exsr``'s ``KGGenerator`` variables (numpy tree) -> the state dict
     of :class:`exsr_torch.kernelgan.kernelgan.KGGenerator`."""
-    p = variables['params'] if 'params' in variables else variables
-    return {f'{name}.weight': _kernel(entry) for name, entry in p.items()}
+    return from_exsr_flat_params(variables)
 
 
 def kernelgan_d_from_exsr_vars(variables) -> dict:
@@ -174,35 +174,56 @@ def kernelgan_d_from_exsr_vars(variables) -> dict:
     :class:`exsr_torch.kernelgan.kernelgan.KGDiscriminator`: each
     spectral-norm conv's weight, bias and ``u``, each batch norm's scale,
     bias and running statistics."""
-    stats = variables.get('batch_stats') or {}
-    out = {}
-    for name, entry in variables['params'].items():
-        if name.startswith('bn'):
-            out.update({f'{name}.{k}': v for k, v in
-                        _batch_norm(entry, stats.get(name)).items()})
-        else:
-            out[f'{name}.weight'] = _kernel(entry)
-            out[f'{name}.bias'] = torch.from_numpy(np.array(entry['bias']))
-    for name, entry in (variables.get('spectral') or {}).items():
-        out[f'{name}.u'] = torch.from_numpy(np.array(entry['u']))
-    return out
+    return _flax_state(variables)
 
 
 def svhn_from_exsr_vars(variables) -> dict:
     """``exsr``'s ``SVHNClassifier`` variables (``params`` and
     ``batch_stats``, numpy trees) -> the state dict of
     :class:`exsr_torch.models.classifiers.SVHNClassifier`."""
-    stats = variables.get('batch_stats') or {}
-    out = {}
-    for name, entry in variables['params'].items():
-        if name.startswith('conv'):
-            part = _conv(entry)
-        elif name.startswith('bn'):
-            part = _batch_norm(entry, stats.get(name))
-        else:
-            part = _dense(entry)
-        out.update({f'{name}.{k}': v for k, v in part.items()})
-    return out
+    return _flax_state(variables)
+
+
+def sft_from_exsr_vars(variables) -> dict:
+    """``exsr``'s ``SFTNet`` variables (numpy tree) -> the state dict of
+    :class:`exsr_torch.models.sft.SFTNet`: the scanned blocks' stacked
+    ``[n_blocks]`` parameters split into ``blocks.<i>``."""
+    p = dict(variables['params'] if 'params' in variables else variables)
+    stacked = p.pop('sft_blocks')['block']
+    n = np.asarray(stacked['conv0']['kernel']).shape[0]
+
+    def take(tree, i):
+        return ({k: take(v, i) for k, v in tree.items()}
+                if isinstance(tree, dict) else np.asarray(tree)[i])
+    p['blocks'] = {str(i): take(stacked, i) for i in range(n)}
+    return _flax_state({'params': p})
+
+
+def segnet_from_exsr_vars(variables) -> dict:
+    """``exsr``'s ``SegNet`` variables (``params``, ``batch_stats``) -> the
+    state dict of :class:`exsr_torch.models.encoders.SegNet`."""
+    return _flax_state(variables, _renamer(
+        (r'ConvBNRelu_(\d+)', r'layers.\1'), *_CONV_BLOCK))
+
+
+def eresnet_from_exsr_vars(variables) -> dict:
+    """``exsr``'s ``EResNet`` variables -> the state dict of
+    :class:`exsr_torch.models.encoders.EResNet`."""
+    return _flax_state(variables, _renamer(
+        (r'^Conv_0$', 'stem'), (r'BasicBlock_(\d+)', r'blocks.\1'),
+        (r'Conv_0$', 'conv0'), (r'Conv_1$', 'conv1'),
+        (r'Conv_2$', 'shortcut'), (r'^fcVar$', 'fc_var')))
+
+
+def resnet101_from_exsr_vars(variables) -> dict:
+    """``exsr``'s ``ResNet101Features`` variables (``params``,
+    ``batch_stats``) -> the state dict of
+    :class:`exsr_torch.models.perceptual.ResNet101Features`."""
+    return _flax_state(variables, _renamer(
+        (r'^Conv_0$', 'conv1'), (r'^BatchNorm_0$', 'bn1'),
+        (r'BottleneckBlock_(\d+)', r'blocks.\1'),
+        (r'Conv_3$', 'proj'), (r'BatchNorm_3$', 'proj_bn'),
+        (r'Conv_(\d)$', r'conv\1'), (r'BatchNorm_(\d)$', r'bn\1')))
 
 
 # ----------------------------------------------- the reference's .pth files

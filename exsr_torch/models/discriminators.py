@@ -8,9 +8,13 @@ Counterpart of ``exsr/models/discriminators.py``:
   ``exsr``'s patch head, whose final logit conv has no norm and no
   activation (``exsr/models/discriminators.py:100-112``);
 * :class:`PatchGANDiscriminator`: the pix2pix PatchGAN, optionally judging
-  the CEM's (low, high) pair through a second stream, with pre-clipping.
+  the CEM's (low, high) pair through a second stream, with pre-clipping;
+* the fixed-size critics no entry point builds
+  (``exsr/models/discriminators.py:125-196``): :class:`DiscriminatorVGG`
+  (96 / 192 px), :class:`DiscriminatorVGG128SN` (spectral norm, no batch
+  norm) and :class:`ACDVGGBN96` (SFT-GAN's GAN and class heads).
 
-Both take NHWC images and return NHWC logits (``[B, 1]`` for the FC
+All take NHWC images and return NHWC logits (``[B, 1]`` for the FC
 head); inside, the convolutions run on NCHW views.  ``forward(x,
 update_stats)``: batch norm always normalizes by the batch's statistics,
 as torch's train mode and ``exsr``'s ``flax_d_adapter`` do, and moves the
@@ -64,27 +68,56 @@ class BatchNorm(nn.Module):
     """Batch norm over NCHW that normalizes by the batch's statistics (or,
     without ``batch_stats``, by the running ones) and updates the running
     ones flax's way only when asked: they keep ``momentum`` of their value
-    and take the rest from the batch's mean and biased variance."""
+    and take the rest from the batch's mean and biased variance.
+
+    ``dp`` (set by :func:`exsr_torch.parallel.dist.sync_batch_norm`) makes
+    the batch the global one of a data-parallel run: each rank's
+    per-channel mean and sum of squared deviations (two-pass, as one
+    process computes them) are gathered, gradients included, and combined
+    exactly (Chan et al.'s pairwise update): sums of squares of the raw
+    values would lose the variance to cancellation in fp32 where the mean
+    is large against the spread."""
 
     def __init__(self, features: int, momentum: float = BN_MOMENTUM,
                  eps: float = BN_EPS):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.dp = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('running_mean', torch.zeros(features))
         self.register_buffer('running_var', torch.ones(features))
 
+    def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_(
+                (1 - self.momentum) * mean)
+            self.running_var.mul_(self.momentum).add_(
+                (1 - self.momentum) * var)
+
+    def _global(self, x: torch.Tensor, update_stats: bool) -> torch.Tensor:
+        c = x.shape[1]
+        n = x.numel() // c              # equal on every rank
+        var_r, mean_r = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        parts = self.dp.gather(torch.cat([mean_r, n * var_r])[None], 0)
+        means, m2 = parts[:, :c], parts[:, c:]
+        mean = means.mean(dim=0)
+        var = (m2 + n * (means - mean) ** 2).sum(dim=0) / (n * len(parts))
+        if update_stats:
+            self._update(mean.detach(), var.detach())
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return (x * scale[:, None, None]
+                + (self.bias - mean * scale)[:, None, None])
+
     def forward(self, x: torch.Tensor, update_stats: bool = False,
                 batch_stats: bool = True):
+        if batch_stats and self.dp is not None:
+            return self._global(x, update_stats)
         if update_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=(0, 2, 3),
                                            correction=0)
-                self.running_mean.mul_(self.momentum).add_(
-                    (1 - self.momentum) * mean)
-                self.running_var.mul_(self.momentum).add_(
-                    (1 - self.momentum) * var)
+                self._update(mean, var)
         if not batch_stats:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, training=False,
@@ -111,6 +144,22 @@ class ConvBlock(nn.Module):
         if self.bn is not None:
             x = self.bn(x, update_stats)
         return F.leaky_relu(x, 0.2) if self.act else x
+
+
+def _init_critic(module: nn.Module, seed: int, init_scale: float = 1.0
+                 ) -> None:
+    """``exsr``'s critic initialisers in ``modules()`` order: Kaiming-normal
+    fan-in convs (times ``init_scale``), LeCun-normal linear layers, zero
+    biases; drawn from a generator seeded with ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Conv2d):
+                kaiming_normal_(m.weight, gen, init_scale)
+                m.bias.zero_()
+            elif isinstance(m, nn.Linear):
+                lecun_normal_(m.weight, gen)
+                m.bias.zero_()
 
 
 def _torch_conv_out(size: int, kernel: int, stride: int) -> int:
@@ -159,15 +208,7 @@ class DiscriminatorVGG128(nn.Module):
                                         padding=0)
             self.pseudo_fc1 = ConvBlock(min(100, cin), 1, kernel=1,
                                         norm=False, act=False)
-        gen = torch.Generator().manual_seed(seed)
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, nn.Conv2d):
-                    kaiming_normal_(m.weight, gen, init_scale)
-                    m.bias.zero_()
-                elif isinstance(m, nn.Linear):
-                    lecun_normal_(m.weight, gen)
-                    m.bias.zero_()
+        _init_critic(self, seed, init_scale)
 
     def forward(self, x: torch.Tensor, update_stats: bool = False):
         x = to_nchw(x)
@@ -178,6 +219,115 @@ class DiscriminatorVGG128(nn.Module):
             return self.fc1(F.leaky_relu(self.fc0(x), 0.2))
         x = F.leaky_relu(self.pseudo_fc0(x, update_stats), 0.2)
         return to_nhwc(self.pseudo_fc1(x))
+
+
+def _vgg_features(nf: int, n_convs: int = 10) -> list[int]:
+    return ([nf, nf, nf * 2, nf * 2, nf * 4, nf * 4] + [nf * 8] * 6)[
+        :n_convs]
+
+
+def _add_vgg_trunk(module: nn.Module, nf: int, n_convs: int,
+                   in_nc: int) -> None:
+    """The fixed-size critics' trunk as ``module.conv<i>``: conv blocks,
+    odd ones 4x4 stride 2, batch norm on all but the first."""
+    cin = in_nc
+    for i, f in enumerate(_vgg_features(nf, n_convs)):
+        odd = i % 2 == 1
+        setattr(module, f'conv{i}', ConvBlock(cin, f, 4 if odd else 3,
+                                              2 if odd else 1, norm=i != 0))
+        cin = f
+
+
+def _vgg_trunk(module: nn.Module, n_convs: int, x, update_stats: bool):
+    """The trunk's features of NHWC ``x``, flattened in NHWC order."""
+    x = to_nchw(x)
+    for i in range(n_convs):
+        x = getattr(module, f'conv{i}')(x, update_stats)
+    return to_nhwc(x).reshape(x.shape[0], -1)
+
+
+class DiscriminatorVGG(nn.Module):
+    """The fixed-size VGG critics of 96 / 192 px inputs: five (six) conv
+    pairs down to 3 x 3 x ``8 nf``, the FC head (Dense 100, LeakyReLU,
+    Dense 1)."""
+
+    def __init__(self, base_nf: int = 64, input_size: int = 96,
+                 in_nc: int = 3, seed: int = 0):
+        super().__init__()
+        if input_size not in (96, 192):
+            raise ValueError(f'input_size must be 96 or 192, got '
+                             f'{input_size}')
+        self.n_convs = 10 if input_size == 96 else 12
+        _add_vgg_trunk(self, base_nf, self.n_convs, in_nc)
+        self.fc0 = nn.Linear(9 * base_nf * 8, 100)
+        self.fc1 = nn.Linear(100, 1)
+        _init_critic(self, seed)
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False):
+        x = _vgg_trunk(self, self.n_convs, x, update_stats)
+        return self.fc1(F.leaky_relu(self.fc0(x), 0.2))
+
+
+class DiscriminatorVGG128SN(nn.Module):
+    """The spectral-norm VGG-128 critic: ten spectral-norm convs and
+    LeakyReLU 0.2, no batch norm, the FC head.  Its stride-2 stages are
+    ``exsr``'s: a stride-1 4x4 conv with padding 1, then the even
+    positions ``[::2, ::2]`` (not torch's stride-2 conv, whose outputs
+    differ).  ``update_stats`` moves each conv's ``u``, as ``exsr``'s
+    ``spectral`` collection does when mutable."""
+
+    def __init__(self, nf: int = 64, in_nc: int = 3, seed: int = 0):
+        super().__init__()
+        from exsr_torch.models.dncnn import SpectralNormConv
+        gen = torch.Generator().manual_seed(seed)
+        self.plan = [(nf, 3, 1), (nf, 4, 2), (2 * nf, 3, 1), (2 * nf, 4, 2),
+                     (4 * nf, 3, 1), (4 * nf, 4, 2), (8 * nf, 3, 1),
+                     (8 * nf, 4, 2), (8 * nf, 3, 1), (8 * nf, 4, 2)]
+        cin = in_nc
+        for i, (f, k, _) in enumerate(self.plan):
+            setattr(self, f'conv{i}', SpectralNormConv(
+                cin, f, k, padding=(k - 1) // 2, gen=gen))
+            cin = f
+        self.fc0 = nn.Linear(16 * cin, 100)
+        self.fc1 = nn.Linear(100, 1)
+        with torch.no_grad():
+            for fc in (self.fc0, self.fc1):
+                lecun_normal_(fc.weight, gen)
+                fc.bias.zero_()
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False):
+        x = to_nchw(x)
+        for i, (_, _, s) in enumerate(self.plan):
+            x = getattr(self, f'conv{i}')(x, update_stats)
+            if s == 2:
+                x = x[:, :, ::2, ::2]
+            x = F.leaky_relu(x, 0.2)
+        x = to_nhwc(x).reshape(x.shape[0], -1)
+        return self.fc1(F.leaky_relu(self.fc0(x), 0.2))
+
+
+class ACDVGGBN96(nn.Module):
+    """The auxiliary-classifier VGG-BN-96 critic of SFT-GAN: the 96 px
+    trunk, a GAN head and a ``num_classes``-way class head (each Dense
+    100, LeakyReLU, Dense); ``forward`` returns ``(gan [N, 1], cls [N,
+    num_classes])``."""
+
+    def __init__(self, base_nf: int = 64, num_classes: int = 8,
+                 in_nc: int = 3, seed: int = 0):
+        super().__init__()
+        _add_vgg_trunk(self, base_nf, 10, in_nc)
+        flat = 9 * base_nf * 8
+        self.gan_fc0 = nn.Linear(flat, 100)
+        self.gan_fc1 = nn.Linear(100, 1)
+        self.cls_fc0 = nn.Linear(flat, 100)
+        self.cls_fc1 = nn.Linear(100, num_classes)
+        _init_critic(self, seed)
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False):
+        x = _vgg_trunk(self, 10, x, update_stats)
+        gan = self.gan_fc1(F.leaky_relu(self.gan_fc0(x), 0.2))
+        cls = self.cls_fc1(F.leaky_relu(self.cls_fc0(x), 0.2))
+        return gan, cls
 
 
 class PatchGANDiscriminator(nn.Module):

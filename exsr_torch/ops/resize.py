@@ -8,8 +8,12 @@ consistency guarantee is an analytic property of these exact taps, so the
 arithmetic follows ``exsr`` line for line; ``tests/test_torch_ops.py``
 holds the two equal.
 
-Left out: ``exsr``'s optional C++ fast path for :func:`imresize`
-(``_native_imresize``); the numpy path below gives the same numbers.
+:func:`imresize` takes ``exsr``'s C++ fast path
+(:mod:`exsr_torch.native.separable`) where ``exsr`` does: a separable
+kernel, edge padding and no ``align_center``.  Unlike ``exsr``, which
+returns to numpy when ``g++`` is missing, it raises
+:class:`~exsr_torch.native.NativeBuildError` then; ``allow_native=False``
+is the way to the numpy path.
 """
 from __future__ import annotations
 
@@ -221,21 +225,49 @@ def downscale_kernel(sf: int, registry: KernelRegistry | None = None
     return (np.rot90(k, 2) / sf ** 2).astype(np.float64)
 
 
+def _native_imresize(im, sf, f, kernel, pre_stride):
+    """The C++ path: the correlation with ``kernel`` (the rot180 of the
+    convolution kernel) as two 1-D passes; None when the kernel is not
+    separable."""
+    from exsr_torch.native import separable
+    from exsr_torch.ops.filters import separable_factors
+    fac = separable_factors(np.asarray(kernel, np.float64))
+    if fac is None:
+        return None
+    col, row = fac
+    squeeze = im.ndim < 3
+    img = np.asarray(im[..., None] if squeeze else im, np.float64)
+    pre = (int(pre_stride[0]), int(pre_stride[1]))
+    out = (separable.upscale if sf > 1 else separable.downscale)(
+        img, col, row, f, pre)
+    return out[..., 0] if squeeze else out
+
+
 def imresize(im: np.ndarray, scale_factor: float,
              registry: KernelRegistry | None = None,
-             use_zero_padding: bool = False) -> np.ndarray:
+             use_zero_padding: bool = False, align_center: bool = False,
+             allow_native: bool = True) -> np.ndarray:
     """Integer-factor resampling of an HWC (or HW) numpy image.
 
     Upscaling zero-stuffs then filters; downscaling filters then
-    subsamples; borders are edge- or zero-padded.
+    subsamples; borders are edge- or zero-padded; ``align_center`` places
+    the kept samples as :func:`calc_strides` does.  With a separable
+    kernel, edge padding and no ``align_center`` it runs the C++ path
+    (float64 out) unless ``allow_native`` is False.
     """
     registry = registry or KernelRegistry()
     sf = float(scale_factor)
     f = int(np.maximum(sf, 1.0 / sf))
-    pre_stride, _ = calc_strides(im.shape, sf)
+    pre_stride, _ = calc_strides(im.shape, sf, align_center)
     kernel = padded_upscale_kernel(f, registry)
     if sf < 1:
         kernel = np.rot90(kernel * sf ** 2, 2)
+    if allow_native and not use_zero_padding and not align_center:
+        # correlation with rot180(kernel) is scipy's convolution with it
+        out = _native_imresize(im, sf, f, np.rot90(kernel, 2).copy(),
+                               pre_stride)
+        if out is not None:
+            return out
     pad = np.floor(np.array(kernel.shape) / 2).astype(np.int64)
     squeeze = im.ndim < 3
     if squeeze:

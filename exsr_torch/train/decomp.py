@@ -27,6 +27,13 @@ one Adam update, in full fp32 (TF32 off).  The semantics are ``exsr``'s:
   divided by the number of Zs, the MAP term is not; L_struct on the static
   Z only, and only when ``latent_channels`` is a string.
 
+Data parallelism (``dp``) as the SR trainer's
+(:mod:`exsr_torch.train.srragan`): every rank takes the global batch and
+draws and computes on its slice, batch norm (the generator's and a
+batch-normed critic's) and the L_struct ring see the global batch, the
+MAP loop's L1 is the local sum over the global count, and the gradients
+and metrics are averaged over ranks.
+
 Every train-mode forward normalises batch norm by the batch.  The
 generator's running statistics move only in the static-Z forward of the G
 step, from the weights before its update; the D step's fakes, the MAP
@@ -47,6 +54,7 @@ from exsr_torch.losses import losses as L
 from exsr_torch.losses.filter_loss import (FilterLossConfig, RatioStats,
                                            filter_loss, num_latent_channels)
 from exsr_torch.ops.structure_tensor import svd_to_latent_z
+from exsr_torch.parallel import dist as P
 from exsr_torch.train.srragan import TrainState, adam_step, param_grads
 from exsr_torch.zopt.optimizer import (adam_init, adam_update,
                                        xavier_uniform_like)
@@ -142,8 +150,9 @@ class DecompTrainer:
     with ``forward(x, update_stats=...)``); batches hold device tensors
     ``'uncomp'`` ``[B, H, W, 1]`` in [0, 255] and ``'qf'`` ``[B]``."""
 
-    def __init__(self, cfg: DecompConfig):
+    def __init__(self, cfg: DecompConfig, dp=None):
         self.cfg = cfg
+        self.dp = P.active(dp)
         self.codec = JPEGCodec()
         # an integer latent_channels gives plain control channels and no
         # L_struct loss
@@ -160,6 +169,7 @@ class DecompTrainer:
         cfg = self.cfg
         device = resolve_device(device)
         g, d = g.to(device), d.to(device)
+        P.join(self.dp, g, d)
         return TrainState(
             g=g, d=d, g_opt=adam_for(g, cfg.lr_g, cfg.beta1),
             d_opt=adam_for(d, cfg.lr_d, cfg.beta1),
@@ -213,6 +223,8 @@ class DecompTrainer:
                           self.cfg.hinge_threshold)
 
     def _inputs(self, batch):
+        """``(uncomp, qf, comp)`` of the rank's slice of the batch."""
+        batch = {k: P.shard(self.dp, batch[k]) for k in ('uncomp', 'qf')}
         qf = batch['qf'].float()
         comp = self.codec.compress(batch['uncomp'], qf, quantize=True)
         return batch['uncomp'], qf, comp
@@ -271,8 +283,8 @@ class DecompTrainer:
             th = theta.detach().requires_grad_()
             img = self.codec.extract(self.forward(g, comp, torch.tanh(th)),
                                      qf)
-            grad, = torch.autograd.grad((img / 255.0 - target).abs().mean(),
-                                        th)
+            err = (img / 255.0 - target).abs()
+            grad, = torch.autograd.grad(P.count_mean(self.dp, err), th)
             upd, opt_state = adam_update(grad, opt_state,
                                          self.cfg.optimal_z_lr)
             theta = theta + upd
@@ -286,13 +298,14 @@ class DecompTrainer:
         cfg, g, d = self.cfg, state.g, state.d
         uncomp, qf, comp = self._inputs(batch)
         b, hb, wb = comp.shape[:3]
-        z, _ = self.sample_z(draws['u'], hb, wb)
+        z, _ = self.sample_z(P.shard(self.dp, draws['u']), hb, wb)
         ref = self._d_input(self.codec.compress(uncomp, qf, quantize=False),
                             comp, z, qf)
         with torch.no_grad(), _without_cudnn():
             fakes = [self._d_input(self.forward(g, comp, z), comp, z, qf)]
         if dual:
-            z_opt = self._optimal_z(g, comp, uncomp, qf, draws['theta0'])
+            z_opt = self._optimal_z(g, comp, uncomp, qf,
+                                    P.shard(self.dp, draws['theta0']))
             with torch.no_grad(), _without_cudnn():
                 fakes.insert(0, self._d_input(self.forward(g, comp, z_opt),
                                               comp, z_opt, qf))
@@ -304,8 +317,10 @@ class DecompTrainer:
         for i, fake in enumerate(fakes):
             pred_fake = d(fake, update_stats=True)
             if cfg.relativistic:
-                l_real = self._gan(pred_real - pred_fake.mean(), True)
-                l_fake = self._gan(pred_fake - pred_real.mean(), False)
+                mean_fake = P.global_mean(self.dp, pred_fake)
+                mean_real = P.global_mean(self.dp, pred_real)
+                l_real = self._gan(pred_real - mean_fake, True)
+                l_fake = self._gan(pred_fake - mean_real, False)
             else:
                 l_real = 2 * self._gan(pred_real, True)
                 l_fake = 2 * self._gan(pred_fake, False)
@@ -313,7 +328,7 @@ class DecompTrainer:
             if 'gp' in cfg.gan_type and cfg.gp_weight > 0:
                 gp = L.gradient_penalty(
                     lambda x: d(x, update_stats=False), ref, fake,
-                    draws['alpha'][i])
+                    P.shard(self.dp, draws['alpha'][i]))
                 step_loss = step_loss + cfg.gp_weight * gp
             total = total + step_loss
             diffs.append((pred_real - pred_fake).detach().reshape(b, -1)
@@ -326,7 +341,7 @@ class DecompTrainer:
         metrics['D_logits_diff'] = diffs.mean()
         metrics['Correctly_distinguished'] = (diffs > 0).float().mean()
         metrics['l_d_total'] = total.detach()
-        return param_grads(params), metrics
+        return P.reduced(self.dp, param_grads(params), metrics)
 
     def d_step(self, state: TrainState, batch: dict, dual: bool = True,
                draws: dict | None = None):
@@ -348,8 +363,9 @@ class DecompTrainer:
         cfg, g, d = self.cfg, state.g, state.d
         uncomp, qf, comp = self._inputs(batch)
         hb, wb = comp.shape[1:3]
-        z_static, svd = self.sample_z(draws['u'], hb, wb)
-        z_opt = (self._optimal_z(g, comp, uncomp, qf, draws['theta0'])
+        z_static, svd = self.sample_z(P.shard(self.dp, draws['u']), hb, wb)
+        z_opt = (self._optimal_z(g, comp, uncomp, qf,
+                                 P.shard(self.dp, draws['theta0']))
                  if dual else None)
         n_steps = 2 if dual else 1
         params = list(g.parameters())
@@ -370,7 +386,8 @@ class DecompTrainer:
             if (not is_opt) and self.latent_loss_active:
                 z3 = z_to_3_channels(z) if cfg.svd_mode else z
                 l_lat, ratio_stats = filter_loss(
-                    self.filter_cfg, state.ratio_stats, img, uncomp, z3, svd)
+                    self.filter_cfg, state.ratio_stats, img, uncomp, z3, svd,
+                    dp=self.dp)
                 total = total + cfg.latent_weight * l_lat.mean()
                 metrics['l_g_latent'] = l_lat.detach().mean()
             if use_gan:
@@ -381,7 +398,8 @@ class DecompTrainer:
                 metrics['l_g_gan'] = l_gan.detach()
         total.backward(inputs=params)
         metrics['l_g_total'] = total.detach()
-        return param_grads(params), metrics, ratio_stats.detached()
+        return (*P.reduced(self.dp, param_grads(params), metrics),
+                ratio_stats.detached())
 
     def g_step(self, state: TrainState, batch: dict, dual: bool = True,
                use_gan: bool = True, draws: dict | None = None):

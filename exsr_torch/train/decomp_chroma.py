@@ -16,6 +16,11 @@ channels, conditioned on a Y channel:
   update against the updated D: pixel L1 on CbCr (weighted by
   ``optimal_z_weight``), plus range, plus the adversarial term.
 
+Data parallelism (``dp``) as the Y trainer's: every rank draws the
+global step's numbers and keeps its slice of them and of the batch; the
+chroma generator's batch norm sees the global batch; the gradients and
+metrics are averaged over ranks.
+
 Both steps run in full fp32 (TF32 off).  The chroma generator runs in
 train mode (batch statistics); its running statistics move only in the G
 step's forward, as ``exsr``'s ``g_stats_apply`` keeps them.
@@ -28,6 +33,7 @@ from exsr_torch.device import full_fp32, resolve_device
 from exsr_torch.jpeg.codec import JPEGCodec
 from exsr_torch.losses import losses as L
 from exsr_torch.losses.filter_loss import RatioStats
+from exsr_torch.parallel import dist as P
 from exsr_torch.train.decomp import DecompConfig, adam_for
 from exsr_torch.train.srragan import TrainState, adam_step, param_grads
 
@@ -47,10 +53,11 @@ class ChromaDecompTrainer:
     tensors ``'uncomp'`` ``[B, H, W, 3]`` YCbCr in [0, 255] and ``'qf'``
     ``[B]``."""
 
-    def __init__(self, cfg: DecompConfig, gy: torch.nn.Module):
+    def __init__(self, cfg: DecompConfig, gy: torch.nn.Module, dp=None):
         if not cfg.chroma_mode:
             raise ValueError('ChromaDecompTrainer needs chroma_mode=True')
         self.cfg = cfg
+        self.dp = P.active(dp)
         self.gy = gy.requires_grad_(False)
         self.codec_y = JPEGCodec()
         self.codec = JPEGCodec(chroma_mode=True, block_size=16)
@@ -63,6 +70,7 @@ class ChromaDecompTrainer:
         device = resolve_device(device)
         self.gy.to(device)
         gc, d = gc.to(device), d.to(device)
+        P.join(self.dp, self.gy, gc, d)
         return TrainState(
             g=gc, d=d, g_opt=adam_for(gc, cfg.lr_g, cfg.beta1),
             d_opt=adam_for(d, cfg.lr_d, cfg.beta1),
@@ -117,6 +125,12 @@ class ChromaDecompTrainer:
                                         device=g.device)
         return draws
 
+    def local(self, batch: dict, draws: dict):
+        """``(batch, draws)``: the rank's slices of the global step's batch
+        and draws (the whole of them in one process)."""
+        return tuple({k: P.shard(self.dp, v) for k, v in t.items()}
+                     for t in (batch, draws))
+
     def prepare(self, batch: dict, draws: dict) -> dict:
         """The step's inputs: the packed generator input, the reference
         chroma, the target CbCr and the QFs."""
@@ -147,7 +161,8 @@ class ChromaDecompTrainer:
                 lambda x: d(x, update_stats=False), real_in, fake_in,
                 draws['alpha'])
         loss.backward(inputs=params)
-        return param_grads(params), {'l_d_total': loss.detach()}
+        return P.reduced(self.dp, param_grads(params),
+                         {'l_d_total': loss.detach()})
 
     def g_grads(self, state: TrainState, inputs: dict, use_gan: bool):
         """The chroma generator's gradients (in ``g.parameters()`` order)
@@ -174,7 +189,7 @@ class ChromaDecompTrainer:
             loss = loss + (cfg.gan_weight or 0.0) * l_gan
         loss.backward(inputs=params)
         m['l_g_total'] = loss.detach()
-        return param_grads(params), m
+        return P.reduced(self.dp, param_grads(params), m)
 
     def step(self, state: TrainState, batch: dict, use_gan: bool = True,
              draws: dict | None = None):
@@ -183,6 +198,7 @@ class ChromaDecompTrainer:
         with full_fp32():
             if draws is None:
                 draws = self.draw(state, batch['uncomp'].shape[0])
+            batch, draws = self.local(batch, draws)
             inputs = self.prepare(batch, draws)
             _, metrics = self.d_grads(state, inputs, draws)
             adam_step(state, state.d_opt, self.cfg.lr_d, self.cfg)

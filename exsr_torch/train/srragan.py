@@ -24,6 +24,16 @@ Adam update.  The semantics are ``exsr``'s:
   averaged before the one update; D's running statistics and the
   L_struct ring carry from one microbatch to the next.
 
+Data parallelism (``dp``, a :class:`~exsr_torch.parallel.dist.
+DataParallel` of more than one rank): every rank takes the global batch
+and the global draws and computes on its slice of each microbatch
+(``exsr``'s batch-sharded reshape); batch norm, the relativistic means and
+the L_struct ring see the global batch through collectives that carry
+gradients; the MAP loop's L1 is the local sum over the global count; the
+gradients (one flat all-reduce) and the metrics are averaged over ranks
+before Adam and the controller.  One rank, or none, is the one-process
+code.
+
 The outer optimizers are ``torch.optim.Adam`` with the learning rate
 ``lr * multistep_lr(step) * lr_scale`` set before every update, which is
 ``optax.scale_by_adam`` followed by that scale.  Steps run in full fp32:
@@ -42,6 +52,7 @@ from exsr_torch.losses import losses as L
 from exsr_torch.losses.filter_loss import (FilterLossConfig, RatioStats,
                                            filter_loss, num_latent_channels)
 from exsr_torch.ops.structure_tensor import svd_to_latent_z
+from exsr_torch.parallel import dist as P
 from exsr_torch.zopt.optimizer import (adam_init, adam_update,
                                        xavier_uniform_like)
 
@@ -201,10 +212,11 @@ class SRRaGANTrainer:
 
     def __init__(self, cfg: TrainConfig, g_apply: Callable, margins_hr: int,
                  f_apply: Callable | None = None,
-                 g_apply_decomp: Callable | None = None):
+                 g_apply_decomp: Callable | None = None, dp=None):
         if cfg.decomposed_d and g_apply_decomp is None:
             raise ValueError('decomposed_d=True requires g_apply_decomp')
         self.cfg = cfg
+        self.dp = P.active(dp)
         self.g_apply = g_apply
         self.f_apply = f_apply
         self.g_apply_decomp = g_apply_decomp
@@ -221,6 +233,7 @@ class SRRaGANTrainer:
         cfg = self.cfg
         device = resolve_device(device)
         g, d = g.to(device), d.to(device)
+        P.join(self.dp, g, d)
         return TrainState(
             g=g, d=d,
             g_opt=torch.optim.Adam(g.parameters(), lr=cfg.lr_g,
@@ -309,14 +322,20 @@ class SRRaGANTrainer:
         theta = theta0
         opt_state = adam_init(theta)
         for _ in range(self.cfg.optimal_z_iters):
-            th = theta.detach().requires_grad_()
-            fake = self.unpad(self.g_apply(g, lr_img, torch.tanh(th)))
-            grad, = torch.autograd.grad((fake - hr_unpadded).abs().mean(),
-                                        th)
+            grad = self._map_grad(g, lr_img, hr_unpadded, theta)
             upd, opt_state = adam_update(grad, opt_state,
                                          self.cfg.optimal_z_lr)
             theta = theta + upd
         return torch.tanh(theta).detach()
+
+    def _map_grad(self, g, lr_img, hr_unpadded, theta) -> torch.Tensor:
+        """The MAP objective's gradient at pre-tanh Z ``theta``: the L1
+        mean over the global batch (each rank's share, no collective)."""
+        th = theta.detach().requires_grad_()
+        fake = self.unpad(self.g_apply(g, lr_img, torch.tanh(th)))
+        grad, = torch.autograd.grad(
+            P.count_mean(self.dp, (fake - hr_unpadded).abs()), th)
+        return grad
 
     # ---------------------------------------------------------------- D step
     def _d_loss(self, state, lr_img, ref, z, theta0, alphas, dual):
@@ -344,8 +363,10 @@ class SRRaGANTrainer:
         for i, fake in enumerate(fakes):
             pred_fake = d(fake, True)
             if cfg.relativistic:
-                l_real = self._gan(pred_real - pred_fake.mean(), True)
-                l_fake = self._gan(pred_fake - pred_real.mean(), False)
+                mean_fake = P.global_mean(self.dp, pred_fake)
+                mean_real = P.global_mean(self.dp, pred_real)
+                l_real = self._gan(pred_real - mean_fake, True)
+                l_fake = self._gan(pred_fake - mean_real, False)
             else:
                 l_real = 2 * self._gan(pred_real, True)
                 l_fake = 2 * self._gan(pred_fake, False)
@@ -391,15 +412,16 @@ class SRRaGANTrainer:
         params = list(state.d.parameters())
         state.d_opt.zero_grad(set_to_none=True)
         parts = []
-        for i, (lr_i, ref_i, z_i) in enumerate(
-                _microbatches(accum, lr_img, ref, z)):
+        for i, mb in enumerate(_microbatches(accum, lr_img, ref, z)):
+            lr_i, ref_i, z_i = (P.shard(self.dp, t) for t in mb)
             total, m = self._d_loss(
                 state, lr_i, ref_i, z_i,
-                draws['theta0'][i] if dual else None,
-                draws['alpha'][i] if 'alpha' in draws else None, dual)
+                P.shard(self.dp, draws['theta0'][i]) if dual else None,
+                [P.shard(self.dp, a) for a in draws['alpha'][i]]
+                if 'alpha' in draws else None, dual)
             (total / accum).backward(inputs=params)
             parts.append(m)
-        return param_grads(params), _mean_metrics(parts)
+        return P.reduced(self.dp, param_grads(params), _mean_metrics(parts))
 
     def d_step(self, state: TrainState, batch: dict, dual: bool = True,
                draws: dict | None = None):
@@ -454,7 +476,8 @@ class SRRaGANTrainer:
                 metrics['l_g_optimalZ'] = l_map.detach()
             if (not is_opt) and cfg.latent_weight:
                 l_lat, new_stats = filter_loss(self.filter_cfg, ratio_stats,
-                                               fake, ref, z, svd)
+                                               fake, ref, z, svd,
+                                               dp=self.dp)
                 total = total + cfg.latent_weight * l_lat.mean()
                 metrics['l_g_latent'] = l_lat.detach().mean()
             if use_gan:
@@ -463,9 +486,10 @@ class SRRaGANTrainer:
                 if cfg.relativistic:
                     real_in = (low, ref - low) if cfg.decomposed_d else ref
                     pred_real = d(real_in, False).detach()
-                    l_gan = (self._gan(pred_real - pred_fake.mean(), False)
-                             + self._gan(pred_fake - pred_real.mean(),
-                                         True)) / 2
+                    mean_fake = P.global_mean(self.dp, pred_fake)
+                    mean_real = P.global_mean(self.dp, pred_real)
+                    l_gan = (self._gan(pred_real - mean_fake, False)
+                             + self._gan(pred_fake - mean_real, True)) / 2
                 else:
                     l_gan = self._gan(pred_fake, True)
                 total = total + cfg.gan_weight * l_gan / n_steps
@@ -489,14 +513,17 @@ class SRRaGANTrainer:
         for i, mb in enumerate(_microbatches(
                 accum, lr_img, ref, z_static,
                 *[svd[k] for k in svd_keys])):
+            mb = [P.shard(self.dp, t) for t in mb]
             svd_i = dict(zip(svd_keys, mb[3:])) if svd else None
             total, m, stats = self._g_loss(
                 state, mb[0], mb[1], mb[2], svd_i,
-                draws['theta0'][i] if dual else None, stats, dual, use_gan)
+                P.shard(self.dp, draws['theta0'][i]) if dual else None, stats,
+                dual, use_gan)
             (total / accum).backward(inputs=params)
             stats = stats.detached()
             parts.append(m)
-        return param_grads(params), _mean_metrics(parts), stats
+        return (*P.reduced(self.dp, param_grads(params), _mean_metrics(parts)),
+                stats)
 
     def g_step(self, state: TrainState, batch: dict, dual: bool = True,
                use_gan: bool = True, draws: dict | None = None):

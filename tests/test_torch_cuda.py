@@ -1082,3 +1082,87 @@ def test_web_sr_optimize_request_on_cuda(cuda):
             sg.cur_z, device=cuda), m, pre_pad=True)
         cons = (sg.filters.downscale(out) - lr)[:, m:-m, m:-m].abs().max()
     assert cons.item() < 5e-6
+
+
+@pytest.mark.parametrize('kind', ['sft', 'segnet', 'eresnet', 'minc',
+                                  'resnet101', 'vgg96', 'vgg128sn',
+                                  'acd96'])
+def test_aux_models_on_cuda_match_cpu(cuda, kind):
+    """The models no entry point reaches, narrow, on the card against the
+    CPU in fp32 (1e-4 of the largest output); the critics in train mode,
+    their running statistics (or ``u``) moved once on both."""
+    import copy
+    from exsr_torch.device import full_fp32
+    from exsr_torch.models import discriminators as D
+    from exsr_torch.models.encoders import EResNet, SegNet
+    from exsr_torch.models.perceptual import MINCNet, ResNet101Features
+    from exsr_torch.models.sft import SFTNet
+    rng = np.random.default_rng(5)
+
+    def x(*shape):
+        return torch.from_numpy(rng.uniform(size=shape).astype(np.float32))
+    module, inputs, kw = {
+        'sft': lambda: (SFTNet(n_blocks=2), (x(2, 16, 16, 3),
+                                             x(2, 64, 64, 8)), {}),
+        'segnet': lambda: (SegNet(num_layers=5), (x(2, 32, 32, 3),),
+                           {'train': True}),
+        'eresnet': lambda: (EResNet(ndf=8, vae_like=True, input_size=64),
+                            (x(2, 64, 64, 3),), {}),
+        'minc': lambda: (MINCNet(), (x(2, 32, 32, 3),), {}),
+        'resnet101': lambda: (ResNet101Features(), (x(2, 64, 64, 3),),
+                              {'train': True}),
+        'vgg96': lambda: (D.DiscriminatorVGG(base_nf=8), (x(4, 96, 96, 3),),
+                          {'update_stats': True}),
+        'vgg128sn': lambda: (D.DiscriminatorVGG128SN(nf=8),
+                             (x(4, 128, 128, 3),), {'update_stats': True}),
+        'acd96': lambda: (D.ACDVGGBN96(base_nf=8), (x(4, 96, 96, 3),),
+                          {'update_stats': True}),
+    }[kind]()
+    card = copy.deepcopy(module).to(cuda)
+    with torch.no_grad(), full_fp32():
+        want = module(*inputs, **kw)
+        got = card(*(t.to(cuda) for t in inputs), **kw)
+    pairs = list(zip(got, want)) if isinstance(want, tuple) \
+        else [(got, want)]
+    for g, w in pairs:
+        assert g.device.type == 'cuda'
+        assert float((g.cpu() - w).abs().max() / w.abs().max()) < 1e-4
+    sd = card.state_dict()
+    for k, v in module.state_dict().items():
+        torch.testing.assert_close(sd[k].cpu(), v, atol=1e-5, rtol=1e-4,
+                                   msg=k)
+
+
+def test_one_rank_nccl_trains_a_step(cuda, monkeypatch):
+    """``init_from_env`` under a one-rank torchrun environment joins an
+    NCCL group on ``cuda:LOCAL_RANK``; a trainer on that rank is the
+    one-process trainer (no collective in the step)."""
+    import socket
+    import torch.distributed as dist
+    from exsr_torch.parallel.dist import init_from_env
+    from exsr_torch.train.decomp import DecompTrainer, DecompConfig
+    from exsr_torch.models.dncnn import (DnCNN, DnCNNConfig,
+                                         DnCNNDiscriminator)
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        port = s.getsockname()[1]
+    for k, v in (('RANK', '0'), ('WORLD_SIZE', '1'), ('LOCAL_RANK', '0'),
+                 ('MASTER_ADDR', 'localhost'), ('MASTER_PORT', str(port))):
+        monkeypatch.setenv(k, v)
+    dp, device = init_from_env()
+    try:
+        assert dist.get_backend() == 'nccl'
+        assert device == torch.device('cuda', 0) and dp.world == 1
+        tr = DecompTrainer(DecompConfig(optimal_z_iters=1), dp=dp)
+        assert tr.dp is None
+        state = tr.init_state(DnCNN(DnCNNConfig(n_channels=16, depth=3)),
+                              DnCNNDiscriminator(n_channels=16, depth=3,
+                                                 expected_input_size=8),
+                              device=device)
+        batch = {'uncomp': torch.rand(2, 64, 64, 1, device=device) * 255,
+                 'qf': torch.tensor([10, 40], device=device)}
+        _, metrics = tr.d_step(state, batch, dual=False)
+        assert np.isfinite(float(metrics['l_d_total']))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()

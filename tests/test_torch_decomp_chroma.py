@@ -63,6 +63,12 @@ def _mixed_key():
 
 @pytest.fixture(scope='module')
 def setup():
+    return build()
+
+
+def build(rules=None) -> dict:
+    """Both trainers on exsr's seeded weights, exsr's step (its batch
+    sharded by ``rules`` when given) and its draws."""
     jcfg = JConfig(latent_channels=0, chroma_mode=True)
     hb16 = PATCH // 16
     gy_cfg = dict(n_channels=NF, depth=DEPTH, num_latent_channels=YLAT)
@@ -92,7 +98,7 @@ def setup():
         return out, mut['batch_stats']
 
     jtr = JTrainer(jcfg, gy_apply, gc_apply, flax_d_adapter(jd),
-                   g_stats_apply=gc_stats_apply)
+                   g_stats_apply=gc_stats_apply, rules=rules)
     jtr.g_tx = jtr.d_tx = _capture()
     jstate = jtr.init_state(gc_vars, d_vars, _mixed_key())
 
@@ -113,14 +119,21 @@ def setup():
     qf = np.array([10, 30], np.int32)
     jbatch = {'uncomp': jnp.asarray(uncomp), 'qf': jnp.asarray(qf)}
     batch = {'uncomp': torch.from_numpy(uncomp), 'qf': torch.from_numpy(qf)}
-    jnew, jm = jtr.step_fn(jstate, jbatch, use_gan=True)
     _, mix_rng, gp_rng = jax.random.split(jstate.rng, 3)
     draws = {'is_fake': torch.from_numpy(np.array(
                  jax.random.bernoulli(mix_rng, 0.5, (B,)))),
              'alpha': torch.from_numpy(np.array(
                  jax.random.uniform(gp_rng, (B, 1, 1, 1))))}
+    # (the sharded step donates its state: draw first)
+    jnew, jm = jtr.step_fn(
+        jstate, jbatch if rules is None else rules.shard_batch(jbatch),
+        use_gan=True)
     return dict(jtr=jtr, jstate=jstate, jnew=jnew, jm=jm, tr=tr,
-                state=state, batch=batch, jbatch=jbatch, draws=draws)
+                state=state, batch=batch, jbatch=jbatch, draws=draws,
+                gy_kw=gy_cfg, gc_kw=gc_cfg, gy_state=gy.state_dict(),
+                d_kw=dict(n_channels=NF, depth=DEPTH,
+                          expected_input_size=hb16, norm='layer',
+                          in_nc=256 + 128))
 
 
 def _close_grads(named: dict, ref: dict) -> float:

@@ -36,7 +36,9 @@ def test_every_module_imports_with_jax_and_exsr_blocked():
               'train.decomp', 'apps.jpeg_session', 'apps.eval_jpeg',
               'device', 'train.decomp_chroma', 'apps.train_jpeg',
               'kernelgan', 'kernelgan.kernelgan', 'apps.web', 'apps.scripts',
-              'data.packed'):
+              'data.packed', 'models.sft', 'models.encoders',
+              'models.perceptual', 'models.factory', 'native.separable',
+              'parallel', 'parallel.dist'):
         assert f'exsr_torch.{m}' in mods
     blocked = '; '.join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
     code = (f'import sys; {blocked}; import importlib; '
@@ -47,6 +49,9 @@ def test_every_module_imports_with_jax_and_exsr_blocked():
             'from exsr_torch.kernelgan.kernelgan import estimate_sr_kernel; '
             'estimate_sr_kernel(np.random.default_rng(0).uniform('
             "size=(80, 80, 3)).astype('float32'), 4, 1, 'cpu'); "
+            # the loaders' C++ resize path, run
+            'from exsr_torch.ops.resize import imresize; '
+            'imresize(np.ones((16, 16, 3)), 0.25); '
             f'assert not any(m in sys.modules and sys.modules[m] '
             f'for m in {FORBIDDEN!r}); print("ok")')
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
