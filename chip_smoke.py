@@ -177,14 +177,26 @@ Phases, one JSON line each:
    result, the ranks' own reported) or within three times the card's gap
    to the CPU for the same JPEG steps, running statistics within 1e-4, the
    controller's decisions equal; each rank's CEM-kernel launches and ms
-   per step.
+   per step;
+27. spatial: the image height split over four gloo ranks sharing the card
+   (``exsr_torch.parallel.{mesh,halo,spatial}``), the kernels built
+   before they start: the CEM-wrapped full-width forward (bf16 grouped
+   trunk, pre-padded, batch 2, LR 128) on a 1 x 4 grid, gathered, against
+   one process on the same weights and inputs (bit-equal, or within twice
+   the one-process bf16 trunk's gap to its fp32 trunk), CEM consistency
+   below 5e-6; the same with the fused trunk (``rdb``) and on a 2 x 2 grid
+   at batch 4; the fp32 Z gradient at depth 2 against one process (1e-5
+   of its largest element); peak memory, the memory held before the call
+   and ms per forward at LR 1024 for one process and per rank; every
+   rank's launches and halo exchanges per forward checked exactly.
 
 Phase 3 also checks and times ``sepfilter_taps``, the CEM filter's adjoint
 kernel, at the edit shape and at the main path's batch-16 shapes; the
 kernels line gives each CEM kernel's training launches and times beside
 its serving ones (``train``), the server's launches per request and
-times at its edit's crop (``web``), and its launches on each of phase 26's
-two ranks per SR training step (``ddp``).
+times at its edit's crop (``web``), its launches on each of phase 26's
+two ranks per SR training step (``ddp``) and on each of phase 27's four
+ranks per forward (``spatial``).
 
 Any failed check raises and the script exits non-zero.  The last lines are
 the kernels summary, the ``nvidia-smi`` name and power limit, and
@@ -273,6 +285,18 @@ DDP_BATCH, DDP_CLI_STEPS, DDP_TIMEOUT = 16, 2, 300
 # faults (PERF.md, section 6)
 DDP_MAP_TOL = 0.2
 DDP_JPEG_TOL = {'d': 2e-2, 'g': 0.15}
+# the spatial axis (phase 27): the grids of the four gloo ranks on the
+# one card, the batch and LR size of the full-width forwards, the depth and
+# LR size of the fp32 Z gradient, the LR size of the memory and time
+# table, the timed repeats of each forward and the ranks' time limit
+SPATIAL_GRIDS = {'1x4': (1, 4), '2x2': (2, 2)}
+SPATIAL_BATCH, SPATIAL_LR = 2, 128
+SPATIAL_GRAD_NB, SPATIAL_GRAD_LR = 2, 64
+SPATIAL_BIG_LR, SPATIAL_REPS, SPATIAL_TIMEOUT = 1024, 2, 300
+# halo exchanges per sharded forward, either trunk: the first conv, Z, 69
+# residual-dense blocks, the trunk conv, two upconvs, two HR convs, the
+# CEM's downscale and its combined inv_hTh / up exchange
+SPATIAL_EXCHANGES = 78
 
 
 def emit(phase: str, **fields) -> None:
@@ -3579,10 +3603,11 @@ def _ddp_rank(init, rank, world, out_path, zstar_path):
 
 
 @contextlib.contextmanager
-def _processes(cmds: dict, tmp: str):
+def _processes(cmds: dict, tmp: str, what: str = 'train_ddp'):
     """Start each ``{tag: argv}`` from the repository root, its output in
     ``tmp/<tag>.log``; the block gets ``wait(timeout)``, which checks that
-    every one exited 0.  Every process is stopped when the block ends."""
+    every one exited 0 (a failure names ``what`` and the tag).  Every
+    process is stopped when the block ends."""
     import os
     root = os.path.dirname(os.path.abspath(__file__))
     procs = {}
@@ -3598,11 +3623,11 @@ def _processes(cmds: dict, tmp: str):
                 try:
                     p.wait(timeout=max(1.0, deadline - time.monotonic()))
                 except subprocess.TimeoutExpired:
-                    check(False, f'train_ddp {tag}: past {timeout} s')
+                    check(False, f'{what} {tag}: past {timeout} s')
                 log.close()
                 with open(f'{tmp}/{tag}.log') as f:
                     text = f.read()
-                check(p.returncode == 0, f'train_ddp {tag}: {text[-3000:]}')
+                check(p.returncode == 0, f'{what} {tag}: {text[-3000:]}')
         yield wait
     finally:
         for p, log in procs.values():
@@ -3851,6 +3876,369 @@ def _tree_diffs(a, b, path='') -> list:
     return [] if a == b else [path]
 
 
+def _spatial_inputs(batch, lr, seed):
+    """Seeded ``(lr, z)`` on the host, the same in every process; a rank
+    puts only its shard on the card."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand(batch, lr, lr, 3, generator=gen)
+    z = torch.rand(batch, SCALE * lr, SCALE * lr, 3, generator=gen) * 2 - 1
+    return x, z
+
+
+def _spatial_models(device, kinds, nb=23):
+    """The seeded full-width weights on the card, only those of ``kinds``:
+    'bf16' and 'fp32' packed for the grouped trunk, 'fused' the
+    fused-trunk module (bf16 compute)."""
+    import torch
+    from exsr_torch.models.rrdb import RRDBNet
+    from exsr_torch.models.rrdb_fast import pack_grouped_params
+    net = RRDBNet(nf=64, nb=nb, gc=32, upscale=SCALE, latent_channels=3,
+                  seed=0)
+    models = {}
+    for kind in kinds:
+        if kind == 'fused':
+            models[kind] = RRDBNet(
+                nf=64, nb=nb, gc=32, upscale=SCALE, latent_channels=3,
+                seed=0, dtype=torch.bfloat16, fused_trunk=True).to(device)
+        else:
+            state = {k: v.to(device) for k, v in net.state_dict().items()}
+            models[kind] = pack_grouped_params(
+                state, dtype=torch.bfloat16 if kind == 'bf16' else None)
+    return models
+
+
+def _spatial_forward(filt, margins, kind, models, mesh=None):
+    """``forward(lr, z, pre_pad)``: the CEM-wrapped generator of ``kind``
+    ('bf16' or 'fp32' grouped trunk, or 'fused'), one process (``mesh``
+    None) or on the rank's shards of ``mesh``."""
+    import torch
+    from exsr_torch.cem.cem import cem_wrap
+    from exsr_torch.models.rrdb_fast import rrdbnet_apply_fast
+    from exsr_torch.parallel import spatial
+    params = models[kind]
+    dtype = None if kind == 'fp32' else torch.bfloat16
+    if mesh is None:
+        if kind == 'fused':
+            g = lambda p, x, z: p(x, z)
+        else:
+            g = lambda p, x, z: rrdbnet_apply_fast(None, x, z, packed=p,
+                                                   dtype=dtype)
+        wrapped = cem_wrap(g, filt, upscale=SCALE)
+        return lambda x, z, pre_pad: wrapped(params, x, z, margins, pre_pad)
+    if kind == 'fused':
+        g = spatial.rrdbnet_fused
+    else:
+        g = lambda p, x, z, r: spatial.rrdbnet_apply_fast(
+            None, x, z, r, packed=p, dtype=dtype)
+    wrapped = spatial.cem_wrap(g, filt, upscale=SCALE)
+    return lambda x, z, pre_pad: wrapped(params, x, z, margins, pre_pad,
+                                         mesh)
+
+
+def _spatial_timed(forward, args, reps):
+    """The launches of one call of ``forward(*args)`` (its first, which
+    also warms up), then ``reps`` timed calls: ``(out, launches, ms)``."""
+    import torch
+    zero_launches()
+    out = forward(*args)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = forward(*args)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return out, launches, ms
+
+
+def _spatial_memory(forward, args) -> dict:
+    """Peak device memory of one call (GB): the process's peak, and what
+    was allocated before it (weights and inputs)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    forward(*args)
+    torch.cuda.synchronize()
+    return {'peak_gb': torch.cuda.max_memory_allocated() / 1e9,
+            'base_gb': base / 1e9}
+
+
+def _spatial_big(forward, args) -> dict:
+    """Case (e): launches and ms per forward, then the memory of one more
+    call with nothing of the timed calls left allocated."""
+    out, launches, ms = _spatial_timed(forward, args, SPATIAL_REPS)
+    del out
+    return dict(_spatial_memory(forward, args), launches=launches, ms=ms)
+
+
+def _spatial_grad(forward, lr, z, w):
+    """Z's gradient of ``sum(out * w)``, the launches of the forward and
+    backward."""
+    import torch
+    z = z.clone().requires_grad_()
+    zero_launches()
+    out = forward(lr, z, True)
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    return z.grad, read_launches()
+
+
+def _spatial_cases():
+    """Phase 27's inputs on the host: (a, b) batch 2 at LR 128, (c) batch
+    4, (d) the fp32 gradient's, (e) LR 1024 batch 1."""
+    import torch
+    lr_d, z_d = _spatial_inputs(1, SPATIAL_GRAD_LR, 273)
+    gen = torch.Generator().manual_seed(274)
+    return {'ab': _spatial_inputs(SPATIAL_BATCH, SPATIAL_LR, 271),
+            'c': _spatial_inputs(2 * SPATIAL_BATCH, SPATIAL_LR, 272),
+            'd': (lr_d, z_d, torch.randn(z_d.shape, generator=gen)),
+            'e': _spatial_inputs(1, SPATIAL_BIG_LR, 275)}
+
+
+def _count_exchanges() -> list:
+    """Counts the calls of ``halo_exchange`` that the sharded forwards make
+    (in a one-element list the caller may reset)."""
+    from exsr_torch.parallel import spatial
+    inner, n = spatial.halo_exchange, [0]
+
+    def counted(*args):
+        n[0] += 1
+        return inner(*args)
+    spatial.halo_exchange = counted
+    return n
+
+
+def _spatial_rank(init, rank, world, out_path):
+    """One gloo rank of phase 27 on the card (``python -c`` entry point):
+    the sharded forwards on a 1 x 4 and a 2 x 2 grid over the same four
+    ranks, their results (rank 0: the gathered outputs) into
+    ``out_path``.  Case (e) runs first, with only its weights and the
+    rank's shard of its inputs on the card."""
+    import torch
+    import torch.distributed as dist
+    from exsr_torch.cem.cem import CEM, CEMConf
+    from exsr_torch.parallel.mesh import ShardingRules, make_mesh
+    device = torch.device('cuda', 0)
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group('gloo', init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        cem = CEM.create(CEMConf(scale_factor=SCALE))
+        filt = cem.device_filters(3, device=device)
+        margins = cem.invalidity_margins_lr
+        rules = {g: ShardingRules(make_mesh(*dims, device=device))
+                 for g, dims in SPATIAL_GRIDS.items()}
+        cases = _spatial_cases()
+        exchanges = _count_exchanges()
+        res = {}
+
+        def shards(grid, case, n=2):
+            return [t.to(device) for t in
+                    rules[grid].shard_batch(list(cases[case][:n]))]
+
+        def run(tag, grid, kind, case, pre_pad, models):
+            fwd = _spatial_forward(filt, margins, kind, models,
+                                   rules[grid].mesh)
+            args = (*shards(grid, case), pre_pad)
+            exchanges[0] = 0
+            with torch.inference_mode():
+                if case == 'e':
+                    rec = _spatial_big(fwd, args)
+                else:
+                    out, launches, ms = _spatial_timed(fwd, args,
+                                                       SPATIAL_REPS)
+                    rec = {'launches': launches, 'ms': ms}
+                    out = rules[grid].gather(out)
+                    if rank == 0:
+                        rec['out'] = out.cpu()
+                    del out
+            # (e)'s memory call is one more forward
+            calls = SPATIAL_REPS + (2 if case == 'e' else 1)
+            rec['exchanges'] = exchanges[0] / calls
+            res[tag] = rec
+            del fwd, args
+            torch.cuda.empty_cache()
+
+        run('e', '1x4', 'bf16', 'e', False, _spatial_models(device,
+                                                            ('bf16',)))
+        models = _spatial_models(device, ('bf16', 'fused'))
+        run('a', '1x4', 'bf16', 'ab', True, models)
+        run('b', '1x4', 'fused', 'ab', True, models)
+        run('c', '2x2', 'bf16', 'c', True, models)
+        del models
+        torch.cuda.empty_cache()
+        small = _spatial_models(device, ('fp32',), nb=SPATIAL_GRAD_NB)
+        r = rules['1x4']
+        zg, launches = _spatial_grad(
+            _spatial_forward(filt, margins, 'fp32', small, r.mesh),
+            *shards('1x4', 'd', 3))
+        res['d'] = {'launches': launches, 'z_grad': r.gather(zg).cpu()}
+        torch.save(res, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def _bit_gap(got, want) -> dict:
+    import torch
+    return {'bit_equal': bool(torch.equal(got, want)),
+            'max_abs_gap': (got - want).abs().max().item()}
+
+
+def phase_spatial(device, name, smi, tmp, cem, filt):
+    """The spatial mesh axis (``exsr_torch.parallel``): the image height
+    split over four gloo ranks that share the card (NCCL refuses two ranks
+    on one device), the halos exchanged by ``all_gather`` through the
+    host.  The kernels are built before the ranks start.  (a) the
+    CEM-wrapped full-width forward (bf16 grouped trunk, fp32 CEM,
+    pre-padded) at batch 2, LR 128, on a 1 x 4 grid, gathered, against one
+    process's forward on the same weights and inputs: bit-equal where each
+    pixel's arithmetic is the same, else within twice the one-process
+    bf16 trunk's gap to its fp32 trunk (the edit phase's rule); the CEM
+    consistency of the gathered output below 5e-6; (b) the same with the
+    fused trunk (``rdb``); (c) a 2 x 2 grid at batch 4; (d) the Z
+    gradient of the fp32 grouped forward at depth 2, LR 64, sharded
+    against one process (1e-5 of the largest element); (e) LR 1024, batch
+    1: peak memory, what was allocated before the call, and ms per
+    forward of one process and of each rank, each with only the bf16
+    weights and its own inputs on the card.  Every rank's launches and
+    halo exchanges per forward are checked exactly: 2 / 1 / 1 CEM filters
+    and 69 ``stage4`` (grouped) or ``rdb`` (fused); 78 exchanges.  The
+    one process's ms at (a)'s size is timed too, to estimate a rank's ms
+    per exchange.  Four ranks share one card and exchange through the
+    host: their times are recorded, not claimed."""
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    m = cem.invalidity_margins_lr
+    cases = _spatial_cases()
+    dev = {case: tuple(t.to(device) for t in cases[case])
+           for case in ('ab', 'c', 'd')}
+    one = {}
+    models = _spatial_models(device, ('bf16',))
+    with torch.inference_mode():
+        one_e = _spatial_big(_spatial_forward(filt, m, 'bf16', models),
+                             (*[t.to(device) for t in cases['e']], False))
+    check(one_e['launches'] == per_forward(1, stage4=69),
+          f'spatial: one-process launches {one_e["launches"]}')
+    del models
+    torch.cuda.empty_cache()
+    models = _spatial_models(device, ('bf16', 'fp32', 'fused'))
+    fwd = {k: _spatial_forward(filt, m, k, models)
+           for k in ('bf16', 'fp32', 'fused')}
+    with torch.inference_mode():
+        for case in ('ab', 'c'):
+            lr, z = dev[case]
+            for k in ('bf16', 'fp32', 'fused'):
+                if case == 'c' and k == 'fused':
+                    continue
+                one[case, k] = fwd[k](lr, z, True)
+        ms_ab = _spatial_timed(fwd['bf16'], (*dev['ab'], True),
+                               SPATIAL_REPS)[2]
+    del models, fwd
+    torch.cuda.empty_cache()
+    small = _spatial_models(device, ('fp32',), nb=SPATIAL_GRAD_NB)
+    zg_one, _ = _spatial_grad(_spatial_forward(filt, m, 'fp32', small),
+                              *dev['d'])
+    del small, cases
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t_phase
+
+    ranks = {f'spatial_rank{r}': [sys.executable, '-c', (
+        f'import chip_smoke; chip_smoke._spatial_rank('
+        f'"file://{tmp}/spatial_init", {r}, 4, "{tmp}/spatial{r}.pt")')]
+        for r in range(4)}
+    t0 = time.perf_counter()
+    with _processes(ranks, tmp, 'spatial') as wait:
+        wait(SPATIAL_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    got = [torch.load(f'{tmp}/spatial{r}.pt') for r in range(4)]
+
+    failed, rec = [], {}
+    for tag in ('a', 'b', 'c', 'e'):
+        per_rank = [g[tag]['exchanges'] for g in got]
+        if any(x != SPATIAL_EXCHANGES for x in per_rank):
+            failed.append(f'{tag}: exchanges per forward {per_rank}')
+    for tag, kind, case in (('a', 'bf16', 'ab'), ('b', 'fused', 'ab'),
+                            ('c', 'bf16', 'c')):
+        lr = dev[case][0]
+        want = one[case, kind].cpu()
+        out = got[0][tag]['out']
+        gap = _bit_gap(out, want)
+        bound = 2 * (one[case, kind] - one[case, 'fp32']).abs().max().item()
+        cons = (filt.downscale(out.to(device)) - lr)[
+            :, m:-m, m:-m].abs().max().item()
+        per_rank = [g[tag]['launches'] for g in got]
+        want_l = per_forward(1, rdb=69) if kind == 'fused' \
+            else per_forward(1, stage4=69)
+        row = dict(kind=kind, shape=list(out.shape), **gap, bound=bound,
+                   consistency_max=cons, launches_per_rank=per_rank,
+                   ms_per_rank=[g[tag]['ms'] for g in got])
+        if not (gap['bit_equal'] or gap['max_abs_gap'] <= bound):
+            failed.append(f'{tag}: gap {gap["max_abs_gap"]} > {bound}')
+        if not cons < 5e-6:
+            failed.append(f'{tag}: consistency {cons}')
+        if any(p != want_l for p in per_rank):
+            failed.append(f'{tag}: launches {per_rank}')
+        rec[tag] = row
+        emit('spatial_forward', case=tag, device=name, **row)
+    zg = got[0]['d']['z_grad']
+    top = zg_one.abs().max().item()
+    gap_d = (zg - zg_one.cpu()).abs().max().item()
+    rec['d'] = dict(nb=SPATIAL_GRAD_NB, lr=SPATIAL_GRAD_LR, batch=1,
+                    max_abs_gap=gap_d, largest=top, tol=1e-5 * top,
+                    launches_per_rank=[g['d']['launches'] for g in got])
+    if not gap_d <= 1e-5 * top:
+        failed.append(f'd: Z gradient gap {gap_d} > 1e-5 x {top}')
+    # lr and D g go through one exchange, so the backward also takes the
+    # lr half's inv_hTh filter: one more E^T than one process's three
+    want_d = {**per_forward(1, stage4=3 * SPATIAL_GRAD_NB),
+              'sepfilter_taps': 4}
+    for g in got:
+        if g['d']['launches'] != want_d:
+            failed.append(f'd: launches {g["d"]["launches"]}')
+    emit('spatial_grad', device=name, **rec['d'])
+    if any(g['e']['launches'] != per_forward(1, stage4=69) for g in got):
+        failed.append(f'e: launches {[g["e"]["launches"] for g in got]}')
+    one_ab = float(np.median(ms_ab))
+    table = {'card': smi, 'lr': SPATIAL_BIG_LR, 'batch': 1,
+             'trunk': 'bf16', 'cem': 'fp32', 'pre_pad': False,
+             'one_process': {k: one_e[k] for k in
+                             ('base_gb', 'peak_gb', 'ms')},
+             'spatial4': {
+                 'base_gb_per_rank': [g['e']['base_gb'] for g in got],
+                 'peak_gb_per_rank': [g['e']['peak_gb'] for g in got],
+                 'ms_per_rank': [g['e']['ms'] for g in got]},
+             'exchanges_per_forward': SPATIAL_EXCHANGES,
+             # (a)'s size: a rank's ms less one process's, per exchange
+             'lr128_batch2': {
+                 'one_process_ms': ms_ab,
+                 'ms_per_rank': rec['a']['ms_per_rank'],
+                 'ms_per_exchange_estimate': [
+                     (float(np.median(ms)) - one_ab) / SPATIAL_EXCHANGES
+                     for ms in rec['a']['ms_per_rank']]}}
+    rec.update(table=table, one_s=one_s, ranks_s=ranks_s,
+               phase_s=time.perf_counter() - t_phase)
+    emit('spatial', device=name, grids=SPATIAL_GRIDS, ranks=4,
+         backend='gloo', table=table, one_s=one_s, ranks_s=ranks_s,
+         phase_s=rec['phase_s'])
+    check(not failed, f'spatial: {failed}')
+    return rec
+
+
+def spatial_launches(spatial, counter) -> dict:
+    """A kernel's launches per forward on each of phase 27's four ranks,
+    by path."""
+    return {'launches_per_rank_per_forward': {
+        f'{tag}_{grid}': [r[counter] for r in spatial[tag]
+                          ['launches_per_rank']]
+        for tag, grid in (('a', '1x4'), ('b', '1x4'), ('c', '2x2'))}}
+
+
 def main() -> int:
     import shutil
     import tempfile
@@ -3889,7 +4277,7 @@ def main() -> int:
 
 
 def _phases(device, name, smi, tmp) -> int:
-    """Phases 3-23 and the last lines; ``tmp`` is a scratch directory."""
+    """Phases 3-27 and the last lines; ``tmp`` is a scratch directory."""
     import torch
     from exsr_torch.cem.cem import CEM, CEMConf
     cem = CEM.create(CEMConf(scale_factor=SCALE))
@@ -3921,6 +4309,7 @@ def _phases(device, name, smi, tmp) -> int:
     phase_models(name)
     phase_native_resize(name)
     ddp = phase_train_ddp(device, name, tmp, sr_ref)
+    spat = phase_spatial(device, name, smi, tmp, cem, filt)
     train = train_rows(train_records, train_kern, train_taps)
 
     # launches: the total over the forwards of the path that runs the
@@ -3944,6 +4333,7 @@ def _phases(device, name, smi, tmp) -> int:
             graph_ms=kern[key]['graph_ms'], train=train[f'sepfilter_{k}'],
             web=web[f'sepfilter_{k}'],
             ddp=ddp_launches(ddp, f'sepfilter_{k}'),
+            spatial=spatial_launches(spat, f'sepfilter_{k}'),
             **{f'even_taps_{f}': even[EVEN_ROW[k]][f] for f in (
                 'taps', 'shape', 'max_abs_err', 'ms', 'graph_ms',
                 'bound_ms')})
@@ -3959,12 +4349,12 @@ def _phases(device, name, smi, tmp) -> int:
             source='exsr_torch/csrc/stage4.cu',
             replaces='exsr/ops/pallas/stage4.py:82', path='main',
             library_chain_ms=kern['stage4_bf16']['library_chain_ms'],
-            web=web['stage4']),
+            web=web['stage4'], spatial=spatial_launches(spat, 'stage4')),
         row('rdb', 'rdb_bf16', fused_launches, fused_forwards,
             source='exsr_torch/csrc/rdb.cu',
             replaces='exsr/ops/pallas/rrdb_block.py:145', path='fused',
             library_chain_ms=kern['rdb_bf16']['library_chain_ms'],
-            web=web['rdb']),
+            web=web['rdb'], spatial=spatial_launches(spat, 'rdb')),
         dict(taps_row(kern, edit_runs), train=train['sepfilter_taps'],
              web=web['sepfilter_taps'],
              ddp=ddp_launches(ddp, 'sepfilter_taps'),

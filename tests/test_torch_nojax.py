@@ -38,7 +38,8 @@ def test_every_module_imports_with_jax_and_exsr_blocked():
               'kernelgan', 'kernelgan.kernelgan', 'apps.web', 'apps.scripts',
               'data.packed', 'models.sft', 'models.encoders',
               'models.perceptual', 'models.factory', 'native.separable',
-              'parallel', 'parallel.dist'):
+              'parallel', 'parallel.dist', 'parallel.mesh',
+              'parallel.halo', 'parallel.spatial'):
         assert f'exsr_torch.{m}' in mods
     blocked = '; '.join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
     code = (f'import sys; {blocked}; import importlib; '
