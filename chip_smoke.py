@@ -188,15 +188,31 @@ Phases, one JSON line each:
    at batch 4; the fp32 Z gradient at depth 2 against one process (1e-5
    of its largest element); peak memory, the memory held before the call
    and ms per forward at LR 1024 for one process and per rank; every
-   rank's launches and halo exchanges per forward checked exactly.
+   rank's launches and halo exchanges per forward checked exactly;
+28. spatial_train: ``SRRaGANTrainer`` on a ``data x spatial`` grid of gloo
+   ranks sharing the card (``mesh=make_mesh(1, 2)``, then ``(2, 2)``;
+   ``exsr_torch.parallel.spatial.rrdbnet_module`` under the sharded CEM)
+   with the flagship options at the global batch 16, against one process
+   on the card from the same state, batch and draws: the non-dual D and G
+   steps on both grids and the dual ones on the 1 x 2 grid (on the one
+   process's MAP result), gradients within phase 26's limit, running
+   statistics within 1e-4, the MAP gradient's rows within
+   ``DDP_MAP_TOL``; the losses computed whole left unhalved (a planted
+   fault) must break the limit; every rank's launches and halo exchanges
+   per step checked exactly; peak memory, what each step starts with and
+   its split between the generator and the gathered losses, and ms per
+   step, per rank and for one process.
 
 Phase 3 also checks and times ``sepfilter_taps``, the CEM filter's adjoint
 kernel, at the edit shape and at the main path's batch-16 shapes; the
 kernels line gives each CEM kernel's training launches and times beside
 its serving ones (``train``), the server's launches per request and
 times at its edit's crop (``web``), its launches on each of phase 26's
-two ranks per SR training step (``ddp``) and on each of phase 27's four
-ranks per forward (``spatial``).
+two ranks per SR training step (``ddp``), on each of phase 27's four
+ranks per forward (``spatial``) and on each of phase 28's two ranks per
+sharded training step (``spatial_train``); the ``stage4`` and ``rdb``
+rows carry the fp32 kernel's time beside its library chain's (cuDNN fp32,
+TF32 off: ``fp32_ms``, ``fp32_library_chain_ms``).
 
 Any failed check raises and the script exits non-zero.  The last lines are
 the kernels summary, the ``nvidia-smi`` name and power limit, and
@@ -297,6 +313,13 @@ SPATIAL_BIG_LR, SPATIAL_REPS, SPATIAL_TIMEOUT = 1024, 2, 300
 # residual-dense blocks, the trunk conv, two upconvs, two HR convs, the
 # CEM's downscale and its combined inv_hTh / up exchange
 SPATIAL_EXCHANGES = 78
+# sharded SR training (phase 28): the grids of gloo ranks on the one card
+# (the first runs every case, the second the non-dual steps) and the
+# ranks' time limit; a sharded backward's adjoint launches (the lr half of
+# the CEM's combined exchange adds one E^T to one process's three)
+SPATIAL_TRAIN_GRIDS = {'1x2': (1, 2), '2x2': (2, 2)}
+SPATIAL_TRAIN_TIMEOUT = 300
+SPATIAL_TAPS_PER_BACKWARD = 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -344,8 +367,7 @@ def phase_kernels(filt, device):
             shape=[BATCH, LR, LR, nf], dtype=tag, max_abs_err=err, tol=tol,
             ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
             gbytes_per_s=nbytes / ms / 1e6)
-        if dtype == torch.bfloat16:
-            results[f'stage4_{tag}'].update(stage4_chain(args, ref))
+        results[f'stage4_{tag}'].update(stage4_chain(args, ref))
         emit('kernel', name=f'stage4[{tag}]', **results[f'stage4_{tag}'])
         del ref, args
     torch.cuda.empty_cache()
@@ -422,11 +444,13 @@ def stage4_backward_check(args, gen, dtype, where=''):
 
 def stage4_chain(args, ref):
     """A yardstick, not one call: the stage-4 epilogue as the grouped trunk
-    would run it without the kernel, on the same inputs (one cuDNN bf16
-    conv of c3 with b4, channels_last, then the four slice adds, the 0.2
-    scale and + x in bf16).  The port never runs it."""
+    would run it without the kernel, on the same inputs (one cuDNN conv
+    of c3 with b4, channels_last, then the four slice adds, the 0.2 scale
+    and + x, in the inputs' dtype; fp32 with TF32 off).  The port never
+    runs it."""
     import torch
     import torch.nn.functional as F
+    from exsr_torch.device import full_fp32
     c3, p0, p1, p2, p3, x, w4, b4 = args
     nf = x.shape[-1]
     w = w4.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -440,7 +464,7 @@ def stage4_chain(args, ref):
             acc = acc + p[..., :nf]
         return acc * 0.2 + x
 
-    with torch.inference_mode():
+    with torch.inference_mode(), full_fp32():
         err = (chain(*args[:6]).float() - ref.float()).abs().max().item()
         ms = cuda_ms(chain, [args[:6]], 40)
     return {'library_chain_ms': ms, 'library_chain_max_abs_err': err}
@@ -449,6 +473,7 @@ def stage4_chain(args, ref):
 def kernel_rdb(gen, device):
     """Kernel 3: one residual dense block at LR 128, nf 64, gc 32, nz 3."""
     import torch
+    from exsr_torch.device import full_fp32
     from exsr_torch.models.rrdb import ResidualDenseBlock
     from exsr_torch.ops.kernels.rrdb_block import (executed_flops_bf16,
                                                    pack_rdb, rdb, rdb_plain)
@@ -499,25 +524,26 @@ def kernel_rdb(gen, device):
             shape=[BATCH, LR, LR, nf], dtype=tag, max_abs_err=err, tol=tol,
             share_differing=differ, ms=ms, plain_ms=plain, bound_ms=bms,
             bound_by=by, tflops=flops / ms / 1e9)
+        # A yardstick, not one call: the port's unfused module on the same
+        # inputs and weights (five cuDNN convs on the growing concat,
+        # leaky_relu, residual; fp32 with TF32 off).  The fused path never
+        # runs it.
+        chain = ResidualDenseBlock(nf, gc, nz).to(device)
+        with torch.no_grad():
+            for i in range(5):
+                conv = getattr(chain, f'conv{i}')
+                conv.weight.copy_(ws[i])
+                conv.bias.copy_(bs[i])
+        chain = chain.to(dtype).to(memory_format=torch.channels_last)
+        with torch.inference_mode(), full_fp32():
+            chain_sets = [(x.permute(0, 3, 1, 2), z.permute(0, 3, 1, 2))
+                          for x, z, _ in sets]
+            results[f'rdb_{tag}']['library_chain_ms'] = cuda_ms(
+                chain, chain_sets, iters)
         if dtype == torch.bfloat16:
-            # A yardstick, not one call: the port's unfused module on the
-            # same inputs and weights (five cuDNN bf16 convs on the growing
-            # concat, leaky_relu, residual).  The fused path never runs it.
-            chain = ResidualDenseBlock(nf, gc, nz).to(device)
-            with torch.no_grad():
-                for i in range(5):
-                    conv = getattr(chain, f'conv{i}')
-                    conv.weight.copy_(ws[i])
-                    conv.bias.copy_(bs[i])
-            chain = chain.bfloat16().to(memory_format=torch.channels_last)
-            with torch.inference_mode():
-                chain_sets = [(x.permute(0, 3, 1, 2), z.permute(0, 3, 1, 2))
-                              for x, z, _ in sets]
-                results[f'rdb_{tag}'].update(
-                    library_chain_ms=cuda_ms(chain, chain_sets, iters),
-                    executed_tflops=executed_flops_bf16(BATCH, LR, LR, nf, gc)
-                    / ms / 1e9)
-            del chain, chain_sets
+            results[f'rdb_{tag}']['executed_tflops'] = executed_flops_bf16(
+                BATCH, LR, LR, nf, gc) / ms / 1e9
+        del chain, chain_sets
         emit('kernel', name=f'rdb[{tag}]', **results[f'rdb_{tag}'])
         del sets, out, ref, diff, w
     torch.cuda.empty_cache()
@@ -3401,12 +3427,13 @@ def phase_native_resize(name):
 def _map_feed(trainer, zstar_in):
     """Wrap the SR trainer's MAP loop.  Each call records the MAP
     objective's gradient at the loop's start (``grads``: the trainer's
-    own ``_map_grad``; on a rank also ``control``, the same with the rank's
-    local mean in place of its share of the global mean, the planted
-    normalisation fault), computed beside the step (its launches not
-    counted, its seconds in ``spent``), and the loop's Z* (``rec``).  With
-    ``zstar_in`` (the one-process run's Z* of each call, in order) the
-    rank's slice of it replaces the rank's own, whose gap to it is
+    own ``_map_grad``; on a data-parallel rank also ``control``, the same
+    with the rank's local mean in place of its share of the global mean,
+    the planted normalisation fault), computed beside the step (its
+    launches not counted, its seconds in ``spent``), and the loop's Z*
+    (``rec``).  With ``zstar_in`` (the one-process run's Z* of each call,
+    in order) the rank's slice of it (on a spatial grid its rows)
+    replaces the rank's own, whose gap to it is
     recorded (``gaps``): the loop's ten Adam steps at lr 1 turn
     rounding-level gradient differences into different Z* wherever an
     element's gradient is near zero, so the rest of a dual step is
@@ -3415,6 +3442,10 @@ def _map_feed(trainer, zstar_in):
     import torch
     local = copy.copy(trainer)
     local.dp = None
+    grid = getattr(trainer, 'grid', None)
+
+    def rows(t):
+        return trainer.dp.shard(t) if grid is None else grid.rows(t)
     real = trainer._optimal_z
     rec, gaps, grads, control, spent = [], [], [], [], []
     feed = list(zstar_in or [])
@@ -3425,7 +3456,7 @@ def _map_feed(trainer, zstar_in):
         t0 = time.perf_counter()
         with _uncounted():
             grads.append(trainer._map_grad(g, lr_img, hr, theta0).cpu())
-            if trainer.dp is not None:
+            if trainer.dp is not None and grid is None:
                 control.append(local._map_grad(g, lr_img, hr, theta0)
                                .cpu())
         spent.append(time.perf_counter() - t0)
@@ -3433,7 +3464,7 @@ def _map_feed(trainer, zstar_in):
         rec.append(z.cpu())
         if zstar_in is None:
             return z
-        given = trainer.dp.shard(feed.pop(0)).to(z.device)
+        given = rows(feed.pop(0).to(z.device))
         diff = (z - given).abs()
         gaps.append({'max_abs': float(diff.max()),
                      'share_over_1e-3': float((diff > 1e-3).float().mean())})
@@ -4239,6 +4270,309 @@ def spatial_launches(spatial, counter) -> dict:
         for tag, grid in (('a', '1x4'), ('b', '1x4'), ('c', '2x2'))}}
 
 
+def _spatial_train_setup(device, mesh=None):
+    """Phase 28's workload: the flagship trainer (``train_setup``), one
+    process or with its generator on the rank's rows of ``mesh``
+    (``spatial.cem_wrap`` of ``rrdbnet_module``); the seeded models, the
+    state (seed 2) and the global batch 16 (seed 71) of phase 26."""
+    from exsr_torch.parallel import spatial
+    from exsr_torch.train.srragan import SRRaGANTrainer
+    exp, filt, trainer, g, d = train_setup(device)
+    if mesh is not None:
+        sharded = spatial.cem_wrap(spatial.rrdbnet_module, filt,
+                                   exp.train.scale)
+        trainer = SRRaGANTrainer(
+            exp.train, lambda m, x, z: sharded(m, x, z, 0, False, mesh),
+            trainer.margins_hr, mesh=mesh)
+    state = trainer.init_state(g, d, seed=2, device=device)
+    return trainer, state, train_batch(exp.train, DDP_BATCH, device,
+                                       seed=71)
+
+
+def _tree_clone(tree):
+    import torch
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _grid_steps(trainer, state, batch, steps, zstar_in=None, warm=False):
+    """The steps ``(kind, dual)`` through the trainer's pieces (draws,
+    gradients, Adam), each from the state the call starts with (weights,
+    Adam states, the ring and the draws' generator restored, and restored
+    again at the end), one process or a rank, after one untimed non-dual
+    G step with ``warm`` (cuDNN's first calls): per step the gradients,
+    metrics, running statistics,
+    launches, halo exchanges, host ms (less :func:`_map_feed`'s checks),
+    the MAP loop's records, the updated parameters, and device memory:
+    what was allocated before the step (``base_gb``), the peak, the
+    generator's share (the peak until the first whole-image loss gathers
+    its input, less the base) and the gathered critic, VGG and L_struct
+    share (the peak after it, less what was held then).  Adam's first
+    step is nearly ``sign(g)``, so steps chained on one state would
+    compare rounding-level gradient signs; each starts afresh instead."""
+    import torch
+    from exsr_torch.device import full_fp32
+    from exsr_torch.train.srragan import adam_step
+    from exsr_torch.utils.misc import fetch_scalars
+    cfg = trainer.cfg
+    feeds = _map_feed(trainer, zstar_in)
+    exchanges = _count_exchanges()
+    whole, mark = trainer._whole, {}
+
+    def marked(x, kept):
+        if not mark:
+            mark.update(gen=torch.cuda.max_memory_allocated(),
+                        held=torch.cuda.memory_allocated())
+        return whole(x, kept)
+    trainer._whole = marked
+    start = _tree_clone(state.state_dict())
+    out = []
+    for kind, dual in [('g', False)] * warm + list(steps):
+        state.load_state_dict(_tree_clone(start))
+        seen = [len(f) for f in feeds]
+        mark.clear()
+        zero_launches()
+        exchanges[0] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with full_fp32():
+            draw = trainer.draw_d if kind == 'd' else trainer.draw_g
+            draws = draw(state, batch['hr'].shape, dual)
+            args = (state, batch['lr'], batch['hr'], draws, dual)
+            if kind == 'd':
+                grads, metrics = trainer.d_grads(*args)
+                module, opt, lr = state.d, state.d_opt, cfg.lr_d
+            else:
+                grads, metrics, state.ratio_stats = trainer.g_grads(*args,
+                                                                    True)
+                module, opt, lr = state.g, state.g_opt, cfg.lr_g
+            grads = {n: g.detach().double().cpu() for (n, _), g in
+                     zip(module.named_parameters(), grads)}
+            adam_step(state, opt, lr, cfg)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0 - sum(feeds[-1][seen[-1]:]))
+        peak = torch.cuda.max_memory_allocated()
+        out.append({
+            'kind': kind, 'dual': dual, 'map_iters': cfg.optimal_z_iters,
+            'ms': ms, 'grads': grads,
+            'metrics': fetch_scalars(metrics), 'launches': read_launches(),
+            'exchanges': exchanges[0],
+            'memory': {'base_gb': base / 1e9, 'peak_gb': peak / 1e9,
+                       'generator_gb': (mark['gen'] - base) / 1e9,
+                       'whole_losses_gb': (peak - mark['held']) / 1e9},
+            **dict(zip(('zstar', 'zstar_gaps', 'map_grad'),
+                       [f[n:] for f, n in zip(feeds, seen)])),
+            'running': {f'd.{k}': v.double().cpu()
+                        for k, v in state.d.state_dict().items()
+                        if 'running' in k},
+            'params': {k: p.detach().double().cpu()
+                       for k, p in module.named_parameters()}})
+    del trainer._whole, trainer._optimal_z
+    state.load_state_dict(start)
+    return out[1:] if warm else out
+
+
+def _spatial_train_rank(init, rank, world, grid, out_path, zstar_path):
+    """One gloo rank of phase 28 on the card (``python -c`` entry point):
+    on the ``1x2`` grid the four step kinds (the dual ones on the one
+    process's Z*) and, from the same start, the non-dual G step with the
+    planted fault (every whole loss taken whole on both ranks, not
+    halved); on the ``2x2`` grid the non-dual steps."""
+    import torch
+    import torch.distributed as dist
+    from exsr_torch.parallel.mesh import make_mesh
+    device = torch.device('cuda', 0)
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group('gloo', init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh(*SPATIAL_TRAIN_GRIDS[grid], device=device)
+        trainer, state, batch = _spatial_train_setup(device, mesh)
+        res = {}
+        if grid == '1x2':
+            res['steps'] = _grid_steps(trainer, state, batch, TRAIN_KINDS,
+                                       torch.load(zstar_path), warm=True)
+            trainer.grid.part = lambda loss: loss
+            res['fault'] = _grid_steps(trainer, state, batch,
+                                       [('g', False)])
+        else:
+            res['steps'] = _grid_steps(trainer, state, batch,
+                                       TRAIN_KINDS[:2], warm=True)
+        torch.save(res, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def _grid_rows(full, rank, data, spatial):
+    """Rank ``rank``'s ``(data, height)`` slice of a global NHWC tensor."""
+    b, h = full.shape[0] // data, full.shape[1] // spatial
+    i, j = rank // spatial, rank % spatial
+    return full[i * b:(i + 1) * b, j * h:(j + 1) * h]
+
+
+def _spatial_train_compare(one, ranks, dims, tol, fault=False):
+    """Each step of the ranks against the one process's: every rank's
+    gradients and metrics equal; the gradients within ``tol`` of the
+    largest element (``fault``: only recorded); the running statistics
+    within 1e-4 (relative above 1); the MAP loop's gradient at its start,
+    each rank's rows against their slice of the one process's, within
+    ``DDP_MAP_TOL`` in relative L2; the updated parameters equal on every
+    rank (the state stays replicated) and within ``tol`` of the one
+    process's; every rank's launches per step as one process's, with
+    ``SPATIAL_TAPS_PER_BACKWARD`` adjoints a backward, and
+    ``SPATIAL_EXCHANGES`` halo exchanges a forward (a dual step's MAP
+    loop and its check beside the step included).  ``(rows, failures)``."""
+    rows, failed = [], []
+    by_kind = {(s['kind'], s['dual']): s for s in one}
+    for steps in zip(*ranks):
+        s0 = steps[0]
+        s1 = by_kind[s0['kind'], s0['dual']]
+        key = f'{s1["kind"]}_{"dual" if s1["dual"] else "single"}'
+        gap = _grad_gap(s0['grads'], s1['grads'])
+        row = dict(step=key, grad_gap=gap, tol=tol,
+                   worst=_worst(s0['grads'], s1['grads']),
+                   one_ms=s1['ms'], rank_ms=[s['ms'] for s in steps],
+                   one_memory=s1['memory'],
+                   rank_memory=[s['memory'] for s in steps],
+                   launches_per_rank=[s['launches'] for s in steps],
+                   launches_one=s1['launches'],
+                   exchanges_per_rank=[s['exchanges'] for s in steps])
+        if fault:
+            rows.append(row)
+            continue
+        want = train_launches(s1['kind'], s1['dual'], s1['map_iters'])
+        want['sepfilter_taps'] = (want['sepfilter_taps'] // 3
+                                  * SPATIAL_TAPS_PER_BACKWARD)
+        forwards = want['sepfilter_down'] + (1 if s1['dual'] else 0)
+        stats = max(_stats_gap(s, s1) for s in steps)
+        metrics = max([abs(s0['metrics'][k] - v) / max(abs(v), 1e-6)
+                       for k, v in s1['metrics'].items()] or [0.0])
+        pgap = _grad_gap(s0['params'], s1['params'])
+        map_gaps = []
+        for r, s in enumerate(steps):
+            for mine, full in zip(s['map_grad'], s1['map_grad']):
+                part = _grid_rows(full, r, *dims).double()
+                map_gaps.append(float((mine.double() - part).norm()
+                                      / part.norm()))
+        row.update(running_max_rel_err=stats, metrics_max_rel_err=metrics,
+                   param_gap=pgap,
+                   map_grad_gap=max(map_gaps, default=None),
+                   own_zstar_vs_one=[s['zstar_gaps'] for s in steps],
+                   launches_want=want,
+                   exchanges_want=SPATIAL_EXCHANGES * forwards)
+        checks = [
+            (all(torch_equal(s['grads'][k], s0['grads'][k])
+                 for s in steps for k in s0['grads']), 'ranks differ'),
+            (all(s['metrics'] == s0['metrics'] for s in steps),
+             'metrics differ between ranks'),
+            (all(torch_equal(s['params'][k], s0['params'][k])
+                 for s in steps for k in s0['params']),
+             'updated parameters differ between ranks'),
+            (pgap <= tol, f'updated parameters {pgap} > {tol}'),
+            (gap <= tol, f'gradients {gap} > {tol}'),
+            (stats <= 1e-4, f'running statistics {stats} > 1e-4'),
+            (all(g <= DDP_MAP_TOL for g in map_gaps),
+             f'MAP gradients {map_gaps} > {DDP_MAP_TOL}'),
+            (all(s['launches'] == want for s in steps),
+             f'launches {row["launches_per_rank"]} != {want}'),
+            (all(s['exchanges'] == SPATIAL_EXCHANGES * forwards
+                 for s in steps),
+             f'exchanges {row["exchanges_per_rank"]} != '
+             f'{SPATIAL_EXCHANGES * forwards}')]
+        failed += [f'{key}: {what}' for ok, what in checks if not ok]
+        rows.append(row)
+    return rows, failed
+
+
+def phase_spatial_train(device, name, smi, tmp, sr_ref):
+    """Sharded SR training: ``SRRaGANTrainer(..., mesh=make_mesh(data,
+    spatial))`` with the flagship options (nb 23, nf 64, gc 32, LR 52, HR
+    208, global batch 16, ``DiscriminatorVGG128`` at 128) on gloo ranks
+    sharing the card, the kernels built before they start, against one
+    process on the card from the same state, batch and draws.  (a) A
+    non-dual D and G step on a 1 x 2 grid, within phase 26's limit (phase
+    12's rule) of the one process's gradients; (b) a dual D and G step
+    there, each on the one process's MAP result (its own MAP loop's gap
+    recorded, its MAP gradient within ``DDP_MAP_TOL``); (c) the non-dual
+    steps on a 2 x 2 grid; (d) the planted fault (the losses every rank
+    computes whole not halved) on the non-dual G step, which must break
+    the limit; (e) every rank's launches per step (2 / 1 / 1 CEM filters
+    a forward, ``SPATIAL_TAPS_PER_BACKWARD`` adjoints a backward) and halo
+    exchanges (``SPATIAL_EXCHANGES`` a forward) checked exactly; (f) peak
+    memory, what was allocated before each step and its split, and ms per
+    step (after a warm-up step), per rank and for one process.  Ranks
+    sharing one card and exchanging through the host are recorded, not
+    claimed."""
+    import torch
+    t_phase = time.perf_counter()
+    one = _grid_steps(*_spatial_train_setup(device), TRAIN_KINDS, warm=True)
+    check(all(s['exchanges'] == 0 for s in one),
+          'spatial_train: one process exchanged halos')
+    torch.save([z for step in one for z in step['zstar']],
+               f'{tmp}/spatial_train_zstar.pt')
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t_phase
+    got, ranks_s = {}, {}
+    for grid, dims in SPATIAL_TRAIN_GRIDS.items():
+        world = dims[0] * dims[1]
+        cmds = {f'spatial_train_{grid}_rank{r}': [sys.executable, '-c', (
+            f'import chip_smoke; chip_smoke._spatial_train_rank('
+            f'"file://{tmp}/spatial_train_{grid}_init", {r}, {world}, '
+            f'"{grid}", "{tmp}/spatial_train_{grid}_{r}.pt", '
+            f'"{tmp}/spatial_train_zstar.pt")')] for r in range(world)}
+        t0 = time.perf_counter()
+        with _processes(cmds, tmp, 'spatial_train') as wait:
+            wait(SPATIAL_TRAIN_TIMEOUT)
+        ranks_s[grid] = time.perf_counter() - t0
+        got[grid] = [torch.load(f'{tmp}/spatial_train_{grid}_{r}.pt',
+                                weights_only=False) for r in range(world)]
+    tol = _allowed_gap(sr_ref)
+    failed, rec = [], {'card': smi, 'tol': tol}
+    for grid, dims in SPATIAL_TRAIN_GRIDS.items():
+        rows, bad = _spatial_train_compare(
+            one, [g['steps'] for g in got[grid]], dims, tol)
+        failed += [f'{grid} {b}' for b in bad]
+        for row in rows:
+            emit('spatial_train_step', grid=grid, device=name, **row)
+        rec[grid] = rows
+    rows_f, _ = _spatial_train_compare(one, [g['fault'] for g in
+                                             got['1x2']], (1, 2), tol, True)
+    caught = any(r['grad_gap'] > tol for r in rows_f)
+    for row in rows_f:
+        emit('spatial_train_fault', fault='whole losses not halved',
+             grid='1x2', device=name, caught=caught,
+             **{k: row[k] for k in ('step', 'grad_gap', 'tol', 'worst')})
+    if not caught:
+        failed.append(f'the planted fault passed: '
+                      f'{[r["grad_gap"] for r in rows_f]}')
+    rec.update(one_s=one_s, ranks_s=ranks_s,
+               phase_s=time.perf_counter() - t_phase)
+    emit('spatial_train', device=name, card=smi, grids=SPATIAL_TRAIN_GRIDS,
+         backend='gloo', batch=DDP_BATCH, tol=tol, one_s=one_s,
+         ranks_s=ranks_s,
+         phase_s=rec['phase_s'],
+         ms_per_step={r['step']: {'one': r['one_ms'], 'ranks': r['rank_ms']}
+                      for r in rec['1x2']},
+         memory_per_step={r['step']: {'one': r['one_memory'],
+                                      'ranks': r['rank_memory']}
+                          for r in rec['1x2']})
+    check(not failed, f'spatial_train: {failed}')
+    return rec
+
+
+def spatial_train_launches(rec, counter) -> dict:
+    """A kernel's launches on each rank of phase 28's 1 x 2 grid, per SR
+    training step."""
+    return {'launches_per_rank_per_step': {
+        r['step']: [x[counter] for x in r['launches_per_rank']]
+        for r in rec['1x2']}}
+
+
 def main() -> int:
     import shutil
     import tempfile
@@ -4277,7 +4611,7 @@ def main() -> int:
 
 
 def _phases(device, name, smi, tmp) -> int:
-    """Phases 3-27 and the last lines; ``tmp`` is a scratch directory."""
+    """Phases 3-28 and the last lines; ``tmp`` is a scratch directory."""
     import torch
     from exsr_torch.cem.cem import CEM, CEMConf
     cem = CEM.create(CEMConf(scale_factor=SCALE))
@@ -4310,6 +4644,7 @@ def _phases(device, name, smi, tmp) -> int:
     phase_native_resize(name)
     ddp = phase_train_ddp(device, name, tmp, sr_ref)
     spat = phase_spatial(device, name, smi, tmp, cem, filt)
+    spat_train = phase_spatial_train(device, name, smi, tmp, sr_ref)
     train = train_rows(train_records, train_kern, train_taps)
 
     # launches: the total over the forwards of the path that runs the
@@ -4334,6 +4669,8 @@ def _phases(device, name, smi, tmp) -> int:
             web=web[f'sepfilter_{k}'],
             ddp=ddp_launches(ddp, f'sepfilter_{k}'),
             spatial=spatial_launches(spat, f'sepfilter_{k}'),
+            spatial_train=spatial_train_launches(spat_train,
+                                                 f'sepfilter_{k}'),
             **{f'even_taps_{f}': even[EVEN_ROW[k]][f] for f in (
                 'taps', 'shape', 'max_abs_err', 'ms', 'graph_ms',
                 'bound_ms')})
@@ -4349,15 +4686,21 @@ def _phases(device, name, smi, tmp) -> int:
             source='exsr_torch/csrc/stage4.cu',
             replaces='exsr/ops/pallas/stage4.py:82', path='main',
             library_chain_ms=kern['stage4_bf16']['library_chain_ms'],
+            fp32_ms=kern['stage4_fp32']['ms'],
+            fp32_library_chain_ms=kern['stage4_fp32']['library_chain_ms'],
             web=web['stage4'], spatial=spatial_launches(spat, 'stage4')),
         row('rdb', 'rdb_bf16', fused_launches, fused_forwards,
             source='exsr_torch/csrc/rdb.cu',
             replaces='exsr/ops/pallas/rrdb_block.py:145', path='fused',
             library_chain_ms=kern['rdb_bf16']['library_chain_ms'],
+            fp32_ms=kern['rdb_fp32']['ms'],
+            fp32_library_chain_ms=kern['rdb_fp32']['library_chain_ms'],
             web=web['rdb'], spatial=spatial_launches(spat, 'rdb')),
         dict(taps_row(kern, edit_runs), train=train['sepfilter_taps'],
              web=web['sepfilter_taps'],
              ddp=ddp_launches(ddp, 'sepfilter_taps'),
+             spatial_train=spatial_train_launches(spat_train,
+                                                  'sepfilter_taps'),
              even_taps_max_rel_err=max(r['max_rel_err']
                                        for r in even_taps.values()),
              even_taps_ms=sum(r['ms'] for r in even_taps.values()),

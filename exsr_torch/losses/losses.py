@@ -33,17 +33,22 @@ def gan_loss(gan_type: str, pred: torch.Tensor, target_is_real: bool,
     raise NotImplementedError(f'GAN type [{gan_type}] is not found')
 
 
+def range_excess(x: torch.Tensor, legit_range=(0.0, 1.0)) -> torch.Tensor:
+    """Each value's deviation outside ``[lo, hi]``.  ``torch.maximum``
+    splits the gradient at a tie, as ``jnp.maximum`` does."""
+    lo, hi = legit_range
+    zero = x.new_zeros(())
+    return torch.maximum(torch.maximum(x - hi, zero),
+                         torch.maximum(lo - x, zero))
+
+
 def range_loss(x: torch.Tensor, legit_range=(0.0, 1.0),
                chroma_mode: bool = False) -> torch.Tensor:
     """Mean deviation outside ``[lo, hi]`` over all pixels; with
-    ``chroma_mode`` the first channel is left out.  ``torch.maximum``
-    splits the gradient at a tie, as ``jnp.maximum`` does."""
-    lo, hi = legit_range
+    ``chroma_mode`` the first channel is left out."""
     if chroma_mode:
         x = x[..., 1:]
-    zero = x.new_zeros(())
-    return torch.maximum(torch.maximum(x - hi, zero),
-                         torch.maximum(lo - x, zero)).mean()
+    return range_excess(x, legit_range).mean()
 
 
 def gradient_penalty(d_apply: Callable, real: torch.Tensor,

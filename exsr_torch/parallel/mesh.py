@@ -14,7 +14,11 @@ compiler.  The port runs one process per rank of an initialised
 * :class:`ShardingRules` slices a host batch into the rank's shard
   (:meth:`~ShardingRules.shard_batch`), broadcasts from rank 0
   (:meth:`~ShardingRules.replicate`) and gathers shards back in global
-  order (:meth:`~ShardingRules.gather`, differentiable).
+  order (:meth:`~ShardingRules.gather`, differentiable);
+* :class:`TrainGrid` is the grid as a training step sees it: the rank's
+  slices of the global batch and draws, the CEM margins cropped on
+  shards (uneven, maybe empty), the kept image gathered whole, each
+  loss's share, and the reduction of gradients and metrics.
 
 The halos are written by hand: :mod:`exsr_torch.parallel.halo` exchanges
 them, :mod:`exsr_torch.parallel.spatial` runs the CEM and the generator
@@ -30,7 +34,8 @@ import torch
 import torch.distributed as dist
 
 from exsr_torch.device import resolve_device
-from exsr_torch.parallel.dist import DataParallel, _Gather
+from exsr_torch.parallel.dist import DataParallel, _Gather, sync_batch_norm
+from exsr_torch.parallel.halo import _pad_rows, offsets
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,3 +160,138 @@ class ShardingRules:
         if m.data > 1:
             x = _Gather.apply(x, 0, m.data_group)
         return x
+
+
+class _GatherRows(torch.autograd.Function):
+    """Height shards of the given ``heights`` (uneven, maybe empty)
+    concatenated in rank order; the backward sums the output gradients
+    over the group and keeps the rank's rows, as ``_Gather``'s does."""
+
+    @staticmethod
+    def forward(ctx, x, heights, index, group):
+        ctx.args = (heights, index, group)
+        padded = _pad_rows(x, max(heights))
+        parts = [torch.empty_like(padded) for _ in heights]
+        dist.all_gather(parts, padded, group=group)
+        return torch.cat([p[:, :h] for p, h in zip(parts, heights)], 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        heights, index, group = ctx.args
+        total = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(total, group=group)
+        o = offsets(heights)[index]
+        return total[:, o:o + heights[index]], None, None, None
+
+
+class TrainGrid:
+    """A training step on a ``data x spatial`` grid (``spatial > 1``).
+
+    Every rank takes the global batch and the global draws and keeps its
+    slice: NHWC tensors on ``(data, height)`` (:meth:`rows`), per-sample
+    leaves on ``data`` (the trainer's ``dp``, ``mesh.dp``).  The generator
+    runs on the rank's rows; the CEM margins of its HR output are cropped
+    where they lie (:meth:`kept`: only the global top and bottom lose rows,
+    so the ranks keep uneven parts, some none).
+
+    Each loss on a rank is a *share*: summed over the spatial group it is
+    the loss of the data row's samples.  A pixel mean is the rank's kept
+    pixels' sum over the row's count (:meth:`share`); a loss that needs
+    the whole image runs on the gathered kept image (:meth:`gather`), the
+    same on every rank of the group, and is taken ``1 / spatial`` times
+    (:meth:`part`): the gather's backward sums the group's gradients.
+    Gradients and metrics are then summed over the world and divided by
+    ``data`` (:meth:`reduce`), which is one process's step on the global
+    batch, the same on every rank."""
+
+    def __init__(self, mesh: Mesh, margins_hr: int):
+        if mesh.spatial < 2:
+            raise ValueError('TrainGrid is for spatial > 1; a data x 1 grid '
+                             'is data parallelism (mesh.dp)')
+        self.mesh, self.margins = mesh, int(margins_hr)
+        self.rules = ShardingRules(mesh)
+
+    def join(self, *modules: torch.nn.Module) -> None:
+        """Batch norms over the data group and rank 0's weights on every
+        rank."""
+        for m in modules:
+            self.rules.replicate(sync_batch_norm(m, self.mesh.dp))
+
+    def check(self, lr: torch.Tensor) -> None:
+        """Raise unless the spatial ranks divide the LR height."""
+        if lr.shape[1] % self.mesh.spatial:
+            raise ValueError(f'{self.mesh.spatial} spatial ranks do not '
+                             f'divide the LR height {lr.shape[1]}')
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's ``(data, height)`` slice of a global NHWC tensor."""
+        return x[self.rules.batch_spec(x)]
+
+    def _span(self, h: int, index: int) -> tuple:
+        """Rows ``[a, b)`` of spatial rank ``index``'s ``h``-row HR shard
+        that the margin crop keeps."""
+        o, m = index * h, self.margins
+        a = min(max(m - o, 0), h)
+        b = max(min(self.mesh.spatial * h - m - o, h), a)
+        return a, b
+
+    def kept_height(self, h: int) -> int:
+        """The kept height of the image whose HR shards are ``h`` rows."""
+        return self.mesh.spatial * h - 2 * self.margins
+
+    def heights(self, kept: int) -> tuple:
+        """Each spatial rank's kept rows of an image whose kept height is
+        ``kept``."""
+        h = (kept + 2 * self.margins) // self.mesh.spatial
+        return tuple(b - a for a, b in (self._span(h, i)
+                                        for i in range(self.mesh.spatial)))
+
+    def kept(self, x: torch.Tensor) -> torch.Tensor:
+        """The margin crop of the rank's HR shard: W on both sides, H where
+        the global top and bottom margins meet the shard."""
+        a, b = self._span(x.shape[1], self.mesh.spatial_index)
+        m = self.margins
+        return x[:, a:b, m:x.shape[2] - m]
+
+    def gather(self, x: torch.Tensor, kept: int) -> torch.Tensor:
+        """The kept image of the rank's samples, whole: every rank's
+        :meth:`kept` rows over the spatial group, ``kept`` rows in all;
+        differentiable."""
+        m = self.mesh
+        return _GatherRows.apply(x, self.heights(kept), m.spatial_index,
+                                 m.spatial_group)
+
+    def share(self, e: torch.Tensor, kept: int) -> torch.Tensor:
+        """The rank's share of the mean of ``e`` (elementwise, on its kept
+        rows) over the data row's kept pixels."""
+        return e.sum() / (e.shape[0] * kept * e.shape[2] * e.shape[3])
+
+    def part(self, loss: torch.Tensor) -> torch.Tensor:
+        """The rank's share of a loss every rank of the group computes
+        whole."""
+        return loss / self.mesh.spatial
+
+    @torch.no_grad()
+    def reduce(self, grads: list, metrics: dict):
+        """``(grads, metrics)`` summed over the world and divided by
+        ``data``: the shares' sums over each spatial group, averaged over
+        the data rows.  Gradients in place, through one flat all-reduce;
+        the scalar metrics through one more, in float64."""
+        d = self.mesh.data
+        if grads:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat)
+            flat /= d
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+        keys = [k for k, v in metrics.items()
+                if isinstance(v, torch.Tensor) and v.dim() == 0]
+        if keys:
+            stacked = torch.stack([metrics[k].double() for k in keys])
+            dist.all_reduce(stacked)
+            stacked /= d
+            metrics = {**metrics, **{k: v.to(metrics[k].dtype) for k, v
+                                     in zip(keys, stacked.unbind())}}
+        return grads, metrics

@@ -33,10 +33,16 @@ is cropped the same way.  W is never sharded.
   taps lie in its own ``sf`` rows of HR.
 * :func:`rrdbnet_fused`: ``RRDBNet(fused_trunk=True)``'s forward, the
   ``rdb`` kernel on each block's rows plus 5, inference only.
+* :func:`rrdbnet_module`: the canonical ``RRDBNet.forward`` that training
+  differentiates, through the module's own parameters and cuDNN
+  autograd, with one 5-row exchange per residual-dense block.
 * :func:`cem_wrap`: ``exsr_torch.cem.cem.cem_wrap`` on shards; its
-  result ``cem_apply(params, lr, z_hr, margins_lr, pre_pad, mesh)`` is
-  the entry point.  A caller drives it as ``exsr``'s do: ``make_mesh``,
-  ``ShardingRules.shard_batch``, the sharded forward, ``gather``.
+  result ``cem_apply(params, lr, z_hr, margins_lr, pre_pad, mesh,
+  decompose=False)`` is the entry point.  A caller drives it as
+  ``exsr``'s do: ``make_mesh``, ``ShardingRules.shard_batch``, the
+  sharded forward, ``gather``; the SR trainer on a grid
+  (:class:`exsr_torch.parallel.mesh.TrainGrid`) takes it with the mesh
+  bound.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from exsr_torch.models.rrdb import RRDBNet
 from exsr_torch.models.rrdb_fast import (_conv, _rdb_grouped, _subpixel,
                                          pack_grouped_params)
 from exsr_torch.ops.filters import (bilinear_resize, nearest_upsample,
@@ -126,26 +133,27 @@ def conv_inv_hth(filt, x, rows: Rows):
                                                     'inv_hTh'))
 
 
-def enforce(filt, lr, generated, rows: Rows):
-    """``filt.enforce(lr, generated)`` on shards (``rows``: LR).
+def enforce(filt, lr, generated, rows: Rows, decompose: bool = False):
+    """``filt.enforce(lr, generated, decompose)`` on shards (``rows``: LR).
 
     As ``CEMFilters.enforce``: with a separable up filter and without
-    ``sigmoid_range_limit``, one ``sepfilter_up`` computes ``U(a) + (g -
-    U(b))`` for ``a = inv_hTh * lr`` and ``b = inv_hTh * D g``; ``lr`` and
-    ``D g`` go through one exchange, wide enough for both the inv_hTh
-    filter and the up filter, and ``g``, which the combine only adds,
-    takes zero rows in place of a halo.  Otherwise ``ortho + ns`` from
-    the sharded filters."""
+    ``decompose`` or ``sigmoid_range_limit``, one ``sepfilter_up``
+    computes ``U(a) + (g - U(b))`` for ``a = inv_hTh * lr`` and ``b =
+    inv_hTh * D g``; ``lr`` and ``D g`` go through one exchange, wide
+    enough for both the inv_hTh filter and the up filter, and ``g``, which
+    the combine only adds, takes zero rows in place of a halo.  Otherwise
+    ``ortho + ns`` (with ``decompose`` the pair) from the sharded
+    filters."""
     r_inv = _reach(filt.w_inv_hth, 'inv_hTh')
     t_up = _up_halo(filt)
     d = downscale(filt, generated, rows)
-    if filt.w_up_1d is None or filt.sigmoid_range_limit:
+    if decompose or filt.w_up_1d is None or filt.sigmoid_range_limit:
         ortho = upscale(filt, conv_inv_hth(filt, lr, rows), rows)
         ns = generated - upscale(filt, conv_inv_hth(filt, d, rows), rows)
         if filt.sigmoid_range_limit:
             lo, hi = filt.input_range
             ns = torch.tanh(ns) * (hi - lo)
-        return ortho + ns
+        return (ortho, ns) if decompose else ortho + ns
     c = lr.shape[-1]
     ext, a, b = rows.exchange(torch.cat([lr, d], -1), r_inv + t_up)
     ka, kb = min(t_up, a), min(t_up, b)
@@ -247,33 +255,21 @@ def _module(m, nz: int = 0):
     return lambda t: to_nhwc(m(to_nchw(t)))
 
 
-def rrdbnet_fused(net, lr, z_hr, rows: Rows):
-    """``RRDBNet(fused_trunk=True)``'s forward on shards (``rows``: LR):
-    each block's three ``rdb`` launches with one 5-row exchange each, the
-    block's input, extended once, as the third launch's residual.
-    Inference only, as the kernel is."""
-    if not net.fused_trunk:
-        raise ValueError('rrdbnet_fused runs the fused trunk; the grouped '
-                         'trunk is rrdbnet_apply_fast')
+def _rrdbnet(net, lr, z_hr, rows: Rows, trunk):
+    """``RRDBNet``'s forward on shards (``rows``: LR) around ``trunk(fea,
+    z_lr)``, which runs the blocks on the rank's rows: the first conv, the
+    trunk conv, each upsampling stage and the HR convs with a one-row
+    exchange each."""
     nz = net.latent_channels
     in_dtype = lr.dtype
     dtype = net.fea_conv.weight.dtype if net.dtype is None else net.dtype
     n, h, w, _ = lr.shape
-    lr, z_hr = lr.to(dtype), z_hr.to(dtype)
+    lr = lr.to(dtype)
+    z_hr = None if z_hr is None else z_hr.to(dtype)
     z_lr = _z_lr(z_hr, h, w)
     fea = local(_module(net.fea_conv), _cat(z_lr, lr), rows, 1)
-    z_ext = rows.exchange(z_lr.contiguous(), RDB_HALO)[0].contiguous()
-
-    def rdb_(cur, w, x0=None):
-        ext, a, b = rows.exchange(cur, RDB_HALO)
-        return ext, crop(rdb(ext.contiguous(), z_ext, w, x0=x0), a, b)
-
-    trunk = fea
-    for w3 in net._packed_trunk(dtype):
-        x0, cur = rdb_(trunk, w3[0])
-        cur = rdb_(cur, w3[1])[1]
-        trunk = rdb_(cur, w3[2], x0.contiguous())[1]
-    x = fea + local(_module(net.trunk_conv, nz), _cat(z_lr, trunk), rows, 1)
+    x = fea + local(_module(net.trunk_conv, nz), _cat(z_lr, trunk(fea, z_lr)),
+                    rows, 1)
     f = 3 if net.upscale == 3 else 2
     for i in range(net.n_up):
         up = _module(getattr(net, f'upconv{i}'))
@@ -284,6 +280,60 @@ def rrdbnet_fused(net, lr, z_hr, rows: Rows):
                            1), 0.2)
     x = local(_module(net.hr_conv1, nz), _cat(z_hr, x), rows, 1)
     return x.to(in_dtype)
+
+
+def rrdbnet_fused(net, lr, z_hr, rows: Rows):
+    """``RRDBNet(fused_trunk=True)``'s forward on shards (``rows``: LR):
+    each block's three ``rdb`` launches with one 5-row exchange each, the
+    block's input, extended once, as the third launch's residual.
+    Inference only, as the kernel is."""
+    if not net.fused_trunk:
+        raise ValueError('rrdbnet_fused runs the fused trunk; the grouped '
+                         'trunk is rrdbnet_apply_fast')
+    dtype = net.fea_conv.weight.dtype if net.dtype is None else net.dtype
+
+    def trunk(fea, z_lr):
+        z_ext = rows.exchange(z_lr.contiguous(), RDB_HALO)[0].contiguous()
+
+        def rdb_(cur, w, x0=None):
+            ext, a, b = rows.exchange(cur, RDB_HALO)
+            return ext, crop(rdb(ext.contiguous(), z_ext, w, x0=x0), a, b)
+        t = fea
+        for w3 in net._packed_trunk(dtype):
+            x0, cur = rdb_(t, w3[0])
+            cur = rdb_(cur, w3[1])[1]
+            t = rdb_(cur, w3[2], x0.contiguous())[1]
+        return t
+    return _rrdbnet(net, lr, z_hr, rows, trunk)
+
+
+def rrdbnet_module(net, lr, z_hr, rows: Rows):
+    """The canonical ``RRDBNet.forward`` on shards (``rows``: LR), through
+    the module's own parameters and cuDNN autograd: each residual-dense
+    block on its input extended by one 5-row exchange (Z's extended
+    once), the block's output cropped.  The generator training
+    differentiates; the Z-less ``MSRResNet`` and ``SRResNet`` have no
+    sharded form and raise."""
+    if not isinstance(net, RRDBNet):
+        raise ValueError(f'{type(net).__name__} has no height-sharded '
+                         'forward: only RRDBNet trains on a spatial grid')
+    if net.fused_trunk:
+        raise ValueError('rrdbnet_module runs the module trunk; the fused '
+                         'trunk is rrdbnet_fused (inference only)')
+
+    def trunk(fea, z_lr):
+        z_ext = None if z_lr is None else \
+            to_nchw(rows.exchange(z_lr, RDB_HALO)[0])
+
+        def rdb_(cur, block):
+            ext, a, b = rows.exchange(cur, RDB_HALO)
+            return crop(to_nhwc(block(to_nchw(ext), z_ext)), a, b)
+        t = fea
+        for blk in net.trunk:
+            o = rdb_(rdb_(rdb_(t, blk.rdb1), blk.rdb2), blk.rdb3)
+            t = mul_in_dtype(o, 0.2) + t
+        return t
+    return _rrdbnet(net, lr, z_hr, rows, trunk)
 
 
 # ------------------------------------------------------------ entry point
@@ -299,13 +349,15 @@ def cem_wrap(g_apply, cem_filters, upscale: int):
     """``exsr_torch.cem.cem.cem_wrap`` on height shards.
 
     ``g_apply(params, lr, z_hr, rows)`` is a sharded generator
-    (:func:`rrdbnet_apply_fast`, :func:`rrdbnet_fused`).  Returns
-    ``cem_apply(params, lr, z_hr, margins_lr, pre_pad, mesh)`` on the
-    rank's shards of ``lr`` (``[n, h, W, 3]``) and ``z_hr`` (``[n, sf h,
-    sf W, Cz]``, or None), which returns the rank's ``[n, sf h, sf W, 3]``
-    shard of the output."""
+    (:func:`rrdbnet_apply_fast`, :func:`rrdbnet_fused`,
+    :func:`rrdbnet_module`).  Returns ``cem_apply(params, lr, z_hr,
+    margins_lr, pre_pad, mesh, decompose=False)`` on the rank's shards of
+    ``lr`` (``[n, h, W, 3]``) and ``z_hr`` (``[n, sf h, sf W, Cz]``, or
+    None), which returns the rank's ``[n, sf h, sf W, 3]`` shard of the
+    output (with ``decompose``, of the CEM's ``(low, high)`` pair)."""
 
-    def cem_apply(params, lr, z_hr, margins_lr: int, pre_pad: bool, mesh):
+    def cem_apply(params, lr, z_hr, margins_lr: int, pre_pad: bool, mesh,
+                  decompose: bool = False):
         sf = upscale
         n, h, w, _ = lr.shape
         if z_hr is not None and tuple(z_hr.shape[:3]) != (n, sf * h,
@@ -322,11 +374,14 @@ def cem_wrap(g_apply, cem_filters, upscale: int):
             rows = Rows(mesh, tuple(
                 h + m * ((j == 0) + (j == s - 1)) for j in range(s)))
         generated = g_apply(params, lr, z_hr, rows)
-        out = enforce(cem_filters, lr[..., -3:], generated, rows)
+        out = enforce(cem_filters, lr[..., -3:], generated, rows, decompose)
         if m > 0:
             mh = sf * m
-            out = out[:, mh if i == 0 else 0:
-                      out.shape[1] - (mh if i == s - 1 else 0), mh:-mh]
+
+            def unpad(o):
+                return o[:, mh if i == 0 else 0:
+                         o.shape[1] - (mh if i == s - 1 else 0), mh:-mh]
+            out = tuple(map(unpad, out)) if decompose else unpad(out)
         return out
 
     return cem_apply

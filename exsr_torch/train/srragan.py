@@ -34,6 +34,19 @@ gradients (one flat all-reduce) and the metrics are averaged over ranks
 before Adam and the controller.  One rank, or none, is the one-process
 code.
 
+A ``data x spatial`` grid (``mesh`` from :func:`exsr_torch.parallel.mesh.
+make_mesh` with ``spatial > 1``, ``exsr``'s ``ShardingRules``): the batch
+is split over ``data`` as above and every image's height over ``spatial``
+(:class:`~exsr_torch.parallel.mesh.TrainGrid`).  ``g_apply`` then runs on
+the rank's rows (``exsr_torch.parallel.spatial.cem_wrap`` of
+``rrdbnet_module``, the mesh bound), and so does the MAP loop; the pixel
+losses are the rank's shares of the global means; the critics, the
+gradient penalty, the VGG loss and L_struct run on the kept image gathered
+over the spatial group, each rank of it taking ``1 / spatial`` of them.
+Gradients and metrics are summed over the grid and averaged over
+``data``, so the state stays the same on every rank.  A ``data x 1`` grid
+is ``dp=mesh.dp``.
+
 The outer optimizers are ``torch.optim.Adam`` with the learning rate
 ``lr * multistep_lr(step) * lr_scale`` set before every update, which is
 ``optax.scale_by_adam`` followed by that scale.  Steps run in full fp32:
@@ -53,6 +66,7 @@ from exsr_torch.losses.filter_loss import (FilterLossConfig, RatioStats,
                                            filter_loss, num_latent_channels)
 from exsr_torch.ops.structure_tensor import svd_to_latent_z
 from exsr_torch.parallel import dist as P
+from exsr_torch.parallel.mesh import TrainGrid
 from exsr_torch.zopt.optimizer import (adam_init, adam_update,
                                        xavier_uniform_like)
 
@@ -207,15 +221,27 @@ class SRRaGANTrainer:
     (for ``decomposed_d``).  The discriminator is a module whose
     ``forward(x, update_stats)`` returns logits and moves its running
     statistics only when ``update_stats`` is set.  ``f_apply`` is the
-    perceptual feature net of ``feature_weight``.
+    perceptual feature net of ``feature_weight``.  ``dp`` is a
+    data-parallel rank; ``mesh`` a rank of a ``data x spatial`` grid, on
+    which ``g_apply`` and ``g_apply_decomp`` take and return the rank's
+    height shards.
     """
 
     def __init__(self, cfg: TrainConfig, g_apply: Callable, margins_hr: int,
                  f_apply: Callable | None = None,
-                 g_apply_decomp: Callable | None = None, dp=None):
+                 g_apply_decomp: Callable | None = None, dp=None,
+                 mesh=None):
         if cfg.decomposed_d and g_apply_decomp is None:
             raise ValueError('decomposed_d=True requires g_apply_decomp')
         self.cfg = cfg
+        self.grid = None
+        if mesh is not None:
+            if dp is not None:
+                raise ValueError('pass dp or mesh, not both: a mesh holds '
+                                 'its data group (mesh.dp)')
+            dp = mesh.dp
+            if mesh.spatial > 1:
+                self.grid = TrainGrid(mesh, margins_hr)
         self.dp = P.active(dp)
         self.g_apply = g_apply
         self.f_apply = f_apply
@@ -233,7 +259,10 @@ class SRRaGANTrainer:
         cfg = self.cfg
         device = resolve_device(device)
         g, d = g.to(device), d.to(device)
-        P.join(self.dp, g, d)
+        if self.grid is None:
+            P.join(self.dp, g, d)
+        else:
+            self.grid.join(g, d)
         return TrainState(
             g=g, d=d,
             g_opt=torch.optim.Adam(g.parameters(), lr=cfg.lr_g,
@@ -250,6 +279,55 @@ class SRRaGANTrainer:
     def unpad(self, x: torch.Tensor) -> torch.Tensor:
         m = self.margins_hr
         return x[:, m:-m, m:-m, :] if m > 0 else x
+
+    # What differs on a spatial grid (``self.grid``); without one each is
+    # the one-process (or data-parallel) computation.
+    def _kept(self, x: torch.Tensor) -> torch.Tensor:
+        """The margin crop of the generator's output; on a grid of the
+        rank's rows (its part of the kept rows, maybe none)."""
+        return self.unpad(x) if self.grid is None else self.grid.kept(x)
+
+    def _whole(self, x: torch.Tensor, kept: int) -> torch.Tensor:
+        """The kept image of the rank's samples; on a grid gathered over
+        the spatial group (``kept`` rows)."""
+        return x if self.grid is None else self.grid.gather(x, kept)
+
+    def _mean(self, e: torch.Tensor, kept: int) -> torch.Tensor:
+        """A pixel loss's mean over the kept pixels; on a grid the rank's
+        share of it."""
+        return e.mean() if self.grid is None else self.grid.share(e, kept)
+
+    def _part(self, loss: torch.Tensor) -> torch.Tensor:
+        """A loss computed on the whole image; on a grid the rank's
+        ``1 / spatial`` of it."""
+        return loss if self.grid is None else self.grid.part(loss)
+
+    def _reduced(self, grads: list, metrics: dict):
+        """``(grads, metrics)`` of one process's step on the global batch:
+        averaged over the data ranks; on a grid the shares summed over
+        the spatial group first."""
+        if self.grid is None:
+            return P.reduced(self.dp, grads, metrics)
+        return self.grid.reduce(grads, metrics)
+
+    def _slices(self, mb, theta0):
+        """A microbatch ``(lr, ref or hr, z)`` and its MAP start as the
+        rank computes on them: ``(lr, ref, z, theta0, whole)``.  Without a
+        grid ``mb`` holds the unpadded ref, all is sliced on ``data`` and
+        ``whole`` is None.  On a grid ``mb`` holds the HR batch: the
+        generator's inputs and ``theta0`` are the rank's rows, ``ref`` its
+        kept rows, and ``whole`` the rank's samples' unpadded ref and
+        their Z, whole."""
+        if self.grid is None:
+            return (*(P.shard(self.dp, t) for t in mb),
+                    None if theta0 is None else P.shard(self.dp, theta0),
+                    None)
+        g = self.grid
+        g.check(mb[0])
+        lr, hr, z = (g.rows(t) for t in mb)
+        whole = (self.unpad(P.shard(self.dp, mb[1])), P.shard(self.dp, mb[2]))
+        return (lr, g.kept(hr), z,
+                None if theta0 is None else g.rows(theta0), whole)
 
     def sample_z(self, u: torch.Tensor, zh: int, zw: int):
         """``(z_hr, svd_targets)`` from the per-image uniform draws ``u``
@@ -330,31 +408,47 @@ class SRRaGANTrainer:
 
     def _map_grad(self, g, lr_img, hr_unpadded, theta) -> torch.Tensor:
         """The MAP objective's gradient at pre-tanh Z ``theta``: the L1
-        mean over the global batch (each rank's share, no collective)."""
+        mean over the global batch (each rank's share, no collective; on
+        a grid over the rank's rows, the halos' adjoints bringing the
+        neighbours' terms)."""
         th = theta.detach().requires_grad_()
-        fake = self.unpad(self.g_apply(g, lr_img, torch.tanh(th)))
-        grad, = torch.autograd.grad(
-            P.count_mean(self.dp, (fake - hr_unpadded).abs()), th)
+        fake = self._kept(self.g_apply(g, lr_img, torch.tanh(th)))
+        err = (fake - hr_unpadded).abs()
+        if self.grid is None:
+            loss = P.count_mean(self.dp, err)
+        else:
+            grid = self.grid
+            loss = grid.share(err, grid.kept_height(th.shape[1])) \
+                / grid.mesh.data
+        grad, = torch.autograd.grad(loss, th)
         return grad
 
     # ---------------------------------------------------------------- D step
-    def _d_loss(self, state, lr_img, ref, z, theta0, alphas, dual):
+    def _d_loss(self, state, lr_img, ref, z, theta0, alphas, dual,
+                whole=None):
         """The D loss of one microbatch and its metrics; moves D's running
-        statistics (the real pass, then each fake pass)."""
+        statistics (the real pass, then each fake pass).  On a grid
+        (``whole``, :meth:`_slices`) the MAP loop runs on the rank's rows
+        and the critic on the gathered fakes and the whole ref."""
         cfg, d = self.cfg, state.d
         decomp = cfg.decomposed_d
-        b = ref.shape[0]
+        map_ref = ref
+        if whole is not None:
+            ref = whole[0]
+        b, kept = ref.shape[0], ref.shape[1]
 
         @torch.no_grad()
         def gen(z_in):
             if decomp:
                 low, high = self.g_apply_decomp(state.g, lr_img, z_in)
-                return self.unpad(low), self.unpad(high)
-            return self.unpad(self.g_apply(state.g, lr_img, z_in))
+                return (self._whole(self._kept(low), kept),
+                        self._whole(self._kept(high), kept))
+            return self._whole(self._kept(self.g_apply(state.g, lr_img,
+                                                       z_in)), kept)
 
         fakes = [gen(z)]
         if dual:
-            fakes.insert(0, gen(self._optimal_z(state.g, lr_img, ref,
+            fakes.insert(0, gen(self._optimal_z(state.g, lr_img, map_ref,
                                                 theta0)))
         total = 0.0
         real_in = (fakes[0][0], ref - fakes[0][0]) if decomp else ref
@@ -396,6 +490,9 @@ class SRRaGANTrainer:
         metrics['D_logits_diff'] = diffs.mean()
         metrics['Correctly_distinguished'] = (diffs > 0).float().mean()
         metrics['l_d_total'] = total.detach()
+        if self.grid is not None:
+            return self._part(total), {k: self._part(v)
+                                       for k, v in metrics.items()}
         return total, metrics
 
     def d_grads(self, state: TrainState, lr_img: torch.Tensor,
@@ -408,20 +505,20 @@ class SRRaGANTrainer:
         if cfg.add_quantization_noise:
             hr = hr + draws['noise']
         z, _ = self.sample_z(draws['u'], hr.shape[1], hr.shape[2])
-        ref = self.unpad(hr)
+        ref = self.unpad(hr) if self.grid is None else hr
         params = list(state.d.parameters())
         state.d_opt.zero_grad(set_to_none=True)
         parts = []
         for i, mb in enumerate(_microbatches(accum, lr_img, ref, z)):
-            lr_i, ref_i, z_i = (P.shard(self.dp, t) for t in mb)
+            lr_i, ref_i, z_i, theta0, whole = self._slices(
+                mb, draws['theta0'][i] if dual else None)
             total, m = self._d_loss(
-                state, lr_i, ref_i, z_i,
-                P.shard(self.dp, draws['theta0'][i]) if dual else None,
+                state, lr_i, ref_i, z_i, theta0,
                 [P.shard(self.dp, a) for a in draws['alpha'][i]]
-                if 'alpha' in draws else None, dual)
+                if 'alpha' in draws else None, dual, whole)
             (total / accum).backward(inputs=params)
             parts.append(m)
-        return P.reduced(self.dp, param_grads(params), _mean_metrics(parts))
+        return self._reduced(param_grads(params), _mean_metrics(parts))
 
     def d_step(self, state: TrainState, batch: dict, dual: bool = True,
                draws: dict | None = None):
@@ -437,10 +534,14 @@ class SRRaGANTrainer:
 
     # ---------------------------------------------------------------- G step
     def _g_loss(self, state, lr_img, ref, z_static, svd, theta0,
-                ratio_stats, dual, use_gan):
+                ratio_stats, dual, use_gan, whole=None):
         """The G loss of one microbatch, its metrics and the updated
-        L_struct ring."""
+        L_struct ring.  On a grid (``whole``, :meth:`_slices`) the pixel
+        losses are the rank's shares and the rest runs on the gathered
+        image, the whole ref and the whole Z."""
         cfg, d = self.cfg, state.d
+        ref_w, z_w = (ref, z_static) if whole is None else whole
+        kept = ref_w.shape[1]
         z_opt = (self._optimal_z(state.g, lr_img, ref, theta0)
                  if dual else None)
         n_steps = 2 if dual else 1
@@ -451,40 +552,51 @@ class SRRaGANTrainer:
                 # the losses other than the adversarial one see the summed
                 # image; the D sees the pair
                 low, high = self.g_apply_decomp(state.g, lr_img, z)
-                low, high = self.unpad(low), self.unpad(high)
+                low, high = self._kept(low), self._kept(high)
                 fake = low + high
+                if self.grid is None:
+                    low_w, high_w, fake_w = low, high, fake
+                else:
+                    low_w, high_w = (self._whole(low, kept),
+                                     self._whole(high, kept))
+                    fake_w = low_w + high_w
             else:
-                low = None
-                fake = self.unpad(self.g_apply(state.g, lr_img, z))
+                low_w = None
+                fake = self._kept(self.g_apply(state.g, lr_img, z))
+                fake_w = self._whole(fake, kept)
             if cfg.range_weight:
-                l_range = L.range_loss(fake, cfg.input_range)
+                l_range = self._mean(L.range_excess(fake, cfg.input_range),
+                                     kept)
                 total = total + cfg.range_weight * l_range / n_steps
                 metrics['l_g_range'] = l_range.detach()
             if cfg.pixel_weight:
-                l_pix = (fake - ref).abs().mean()
+                l_pix = self._mean((fake - ref).abs(), kept)
                 total = total + cfg.pixel_weight * l_pix / n_steps
                 metrics['l_g_pix'] = l_pix.detach()
             if cfg.feature_weight and self.f_apply is not None:
                 with torch.no_grad():
-                    real_fea = self.f_apply(ref)
-                l_fea = (self.f_apply(fake) - real_fea).abs().mean()
+                    real_fea = self.f_apply(ref_w)
+                l_fea = self._part(
+                    (self.f_apply(fake_w) - real_fea).abs().mean())
                 total = total + cfg.feature_weight * l_fea / n_steps
                 metrics['l_g_fea'] = l_fea.detach()
             if is_opt and cfg.optimal_z_weight:
-                l_map = (fake - ref).abs().mean()
+                l_map = self._mean((fake - ref).abs(), kept)
                 total = total + cfg.optimal_z_weight * l_map
                 metrics['l_g_optimalZ'] = l_map.detach()
             if (not is_opt) and cfg.latent_weight:
                 l_lat, new_stats = filter_loss(self.filter_cfg, ratio_stats,
-                                               fake, ref, z, svd,
+                                               fake_w, ref_w, z_w, svd,
                                                dp=self.dp)
-                total = total + cfg.latent_weight * l_lat.mean()
-                metrics['l_g_latent'] = l_lat.detach().mean()
+                l_lat = self._part(l_lat.mean())
+                total = total + cfg.latent_weight * l_lat
+                metrics['l_g_latent'] = l_lat.detach()
             if use_gan:
-                pred_fake = d((low, high) if cfg.decomposed_d else fake,
+                pred_fake = d((low_w, high_w) if cfg.decomposed_d else fake_w,
                               False)
                 if cfg.relativistic:
-                    real_in = (low, ref - low) if cfg.decomposed_d else ref
+                    real_in = ((low_w, ref_w - low_w) if cfg.decomposed_d
+                               else ref_w)
                     pred_real = d(real_in, False).detach()
                     mean_fake = P.global_mean(self.dp, pred_fake)
                     mean_real = P.global_mean(self.dp, pred_real)
@@ -492,6 +604,7 @@ class SRRaGANTrainer:
                              + self._gan(pred_fake - mean_real, True)) / 2
                 else:
                     l_gan = self._gan(pred_fake, True)
+                l_gan = self._part(l_gan)
                 total = total + cfg.gan_weight * l_gan / n_steps
                 metrics['l_g_gan'] = l_gan.detach()
         metrics['l_g_total'] = total.detach()
@@ -505,7 +618,7 @@ class SRRaGANTrainer:
         cfg = self.cfg
         accum = max(1, cfg.grad_accum_g)
         z_static, svd = self.sample_z(draws['u'], hr.shape[1], hr.shape[2])
-        ref = self.unpad(hr)
+        ref = self.unpad(hr) if self.grid is None else hr
         svd_keys = list(svd) if svd else []
         params = list(state.g.parameters())
         state.g_opt.zero_grad(set_to_none=True)
@@ -513,16 +626,18 @@ class SRRaGANTrainer:
         for i, mb in enumerate(_microbatches(
                 accum, lr_img, ref, z_static,
                 *[svd[k] for k in svd_keys])):
-            mb = [P.shard(self.dp, t) for t in mb]
-            svd_i = dict(zip(svd_keys, mb[3:])) if svd else None
+            lr_i, ref_i, z_i, theta0, whole = self._slices(
+                mb[:3], draws['theta0'][i] if dual else None)
+            svd_i = (dict(zip(svd_keys, (P.shard(self.dp, t)
+                                         for t in mb[3:])))
+                     if svd else None)
             total, m, stats = self._g_loss(
-                state, mb[0], mb[1], mb[2], svd_i,
-                P.shard(self.dp, draws['theta0'][i]) if dual else None, stats,
-                dual, use_gan)
+                state, lr_i, ref_i, z_i, svd_i, theta0, stats, dual,
+                use_gan, whole)
             (total / accum).backward(inputs=params)
             stats = stats.detached()
             parts.append(m)
-        return (*P.reduced(self.dp, param_grads(params), _mean_metrics(parts)),
+        return (*self._reduced(param_grads(params), _mean_metrics(parts)),
                 stats)
 
     def g_step(self, state: TrainState, batch: dict, dual: bool = True,
