@@ -131,9 +131,10 @@ Phases, one JSON line each:
    iterations) on the in-repo 276 x 276 face degraded by a known
    anisotropic Gaussian x2 kernel: seconds, launches per iteration, busy
    share, kernel quality (reported, not gated); its first iterations
-   against the CPU; ``EditSession.estimate_kernel`` at full width against
-   the same session on the CPU; and ``eval_sr --kernel estimated`` on a
-   128 x 128 LR image.  Phases 17-20 run with TF32 switched on;
+   against the CPU; ``EditSession.estimate_kernel`` (300 iterations) at
+   full width against the same session on the CPU; and ``eval_sr --kernel
+   estimated`` on a 128 x 128 LR image.  Phases 17-20 run with TF32
+   switched on;
 21. web_sr: the exploration server, ``exsr_torch.apps.web.main``, over
    HTTP in SR mode at full width (nb 23, nf 64, gc 32, nz 3, x4, fp32), on
    a seeded plain-ESRGAN ``.pth`` in the reference layout converted by
@@ -192,7 +193,8 @@ Phases, one JSON line each:
 28. spatial_train: ``SRRaGANTrainer`` on a ``data x spatial`` grid of gloo
    ranks sharing the card (``mesh=make_mesh(1, 2)``, then ``(2, 2)``;
    ``exsr_torch.parallel.spatial.rrdbnet_module`` under the sharded CEM)
-   with the flagship options at the global batch 16, against one process
+   with the flagship options at the global batch 16 (the generator cut to
+   ``SPATIAL_TRAIN_NB`` blocks), against one process
    on the card from the same state, batch and draws: the non-dual D and G
    steps on both grids and the dual ones on the 1 x 2 grid (on the one
    process's MAP result), gradients within phase 26's limit, running
@@ -201,6 +203,18 @@ Phases, one JSON line each:
    fault) must break the limit; every rank's launches and halo exchanges
    per step checked exactly; peak memory, what each step starts with and
    its split between the generator and the gathered losses, and ms per
+   step, per rank and for one process;
+29. spatial_jpeg: the JPEG Y trainer at ``train_jpeg``'s defaults and the
+   chroma trainer on a 1 x 2 grid of gloo ranks sharing the card
+   (``mesh=``; ``exsr_torch.parallel.spatial.dncnn_module``), against one
+   process on the card from the same state, batch and draws: the non-dual
+   D and G steps, a dual G step (on the one process's MAP result), a G
+   step with SVD latents, the chroma step; ``MSRResNet`` and ``SRResNet``
+   (nf 64, nb 16, x4) CEM-wrapped forwards on a 1 x 4 grid and an
+   ``MSRResNet`` G step of the flagship trainer on 1 x 2; the generator's
+   batch norms over the data group only and L_struct not halved (planted
+   faults) must break a limit; every rank's launches, halo exchanges and
+   batch-norm reductions per step checked exactly; peak memory and ms per
    step, per rank and for one process.
 
 Phase 3 also checks and times ``sepfilter_taps``, the CEM filter's adjoint
@@ -209,8 +223,10 @@ kernels line gives each CEM kernel's training launches and times beside
 its serving ones (``train``), the server's launches per request and
 times at its edit's crop (``web``), its launches on each of phase 26's
 two ranks per SR training step (``ddp``), on each of phase 27's four
-ranks per forward (``spatial``) and on each of phase 28's two ranks per
-sharded training step (``spatial_train``); the ``stage4`` and ``rdb``
+ranks per forward (``spatial``), on each of phase 28's two ranks per
+sharded training step (``spatial_train``) and on each of phase 29's
+ranks per plain forward and ``MSRResNet`` G step (``spatial_jpeg``); the
+``stage4`` and ``rdb``
 rows carry the fp32 kernel's time beside its library chain's (cuDNN fp32,
 TF32 off: ``fp32_ms``, ``fp32_library_chain_ms``).
 
@@ -276,10 +292,12 @@ JPEG_NF, JPEG_NB = 320, 10
 # inner MAP iterations; the chroma CLI's width under the 320-wide Y model
 JPEG_TRAIN_BATCH, JPEG_REF_BATCH, JPEG_REF_ITERS, CHROMA_NF = 16, 2, 2, 160
 # KernelGAN: the in-repo image it estimates on, the iterations held to the
-# CPU (and profiled), eval_sr's LR image size and KernelGAN iterations
+# CPU (and profiled), eval_sr's LR image size and KernelGAN iterations (also
+# the session's estimation's)
 KG_IMAGE = 'artifacts/convergence_r3/face_SR.png'
 # (eval_sr's estimation at 300 iterations: at 3000 it took 82 s on an H100
-# 80GB HBM3 at 700 W, which put the whole script past 600 s)
+# 80GB HBM3 at 700 W, which put the whole script past 600 s; the session's
+# took 117 s on one, which put the whole script at 1190 s of its 1200)
 KG_CHECK_ITERS, KG_EVAL_LR, KG_EVAL_ITERS = 20, 128, 300
 # the exploration server: the HR image it opens, the steps of an edit and
 # of a digit request
@@ -320,6 +338,23 @@ SPATIAL_EXCHANGES = 78
 SPATIAL_TRAIN_GRIDS = {'1x2': (1, 2), '2x2': (2, 2)}
 SPATIAL_TRAIN_TIMEOUT = 300
 SPATIAL_TAPS_PER_BACKWARD = 4
+# phase 28's generator depth, cut from the flagship's 23 blocks to keep
+# the whole script inside its limit, and its exchanges a forward (three a
+# block, nine outside the trunk as SPATIAL_EXCHANGES's)
+SPATIAL_TRAIN_NB = 8
+SPATIAL_TRAIN_EXCHANGES = 3 * SPATIAL_TRAIN_NB + 9
+# sharded JPEG training and the Z-less generators (phase 29): the trainers'
+# grid and the Y trainer's steps, the plain forwards' grid, the ranks' time
+# limit; the plain generators' width and depth, the limit of their sharded
+# output against one process (of its largest element) and their halo
+# exchanges per forward (the first conv, 16 residual blocks, two upconvs,
+# two HR convs and the bilinear skip or the LR conv; the CEM's two); the
+# sound L_struct metric's limit against one process (relative)
+SPATIAL_JPEG_GRID, PLAIN_GRID = (1, 2), (1, 4)
+SPATIAL_JPEG_Y_STEPS = (('d', False), ('g', False), ('g', True))
+SPATIAL_JPEG_TIMEOUT = 300
+PLAIN_NF, PLAIN_NB, PLAIN_TOL, PLAIN_EXCHANGES = 64, 16, 1e-4, 24
+LSTRUCT_METRIC_TOL = 1e-2
 
 
 def emit(phase: str, **fields) -> None:
@@ -1335,11 +1370,12 @@ def phase_batch_sweep(name):
     return table
 
 
-def train_setup(device, models: bool = True, dp=None):
+def train_setup(device, models: bool = True, dp=None, nb=None):
     """The flagship configuration (``TRAIN_OPT``, through the port's
     ``parse`` and ``experiment_from_reference_json``): its trainer on
     ``device`` (a rank of ``dp`` when given), the CEM filters and, with
-    ``models``, a seeded generator and D."""
+    ``models``, a seeded generator (``nb`` blocks in place of the
+    flagship's when given) and D."""
     from exsr_torch.cem.cem import CEM, CEMConf, cem_wrap
     from exsr_torch.models.discriminators import DiscriminatorVGG128
     from exsr_torch.models.rrdb import RRDBNet
@@ -1357,7 +1393,8 @@ def train_setup(device, models: bool = True, dp=None):
         dp=dp)
     if not models:
         return exp, filt, trainer, None, None
-    g = RRDBNet(nf=net_g.nf, nb=net_g.nb, gc=net_g.gc, upscale=cfg.scale,
+    g = RRDBNet(nf=net_g.nf, nb=nb or net_g.nb, gc=net_g.gc,
+                upscale=cfg.scale,
                 latent_channels=cfg.num_latent_channels, seed=0)
     d = DiscriminatorVGG128(base_nf=net_d.nf, nb=net_d.n_layers,
                             num_2_strides=net_d.num_2_strides,
@@ -2742,7 +2779,7 @@ def phase_kernelgan(device, name):
         sess.open_image(lr, is_hr=False)
         rec = {'consistency_bicubic': _consistency(sess)}
         t0 = time.perf_counter()
-        kern = sess.estimate_kernel()
+        kern = sess.estimate_kernel(KG_EVAL_ITERS)
         torch.cuda.synchronize()
         rec.update(seconds=time.perf_counter() - t0,
                    kernel_shape=list(kern.shape),
@@ -2778,7 +2815,8 @@ def phase_kernelgan(device, name):
             k_true.astype(np.float64), 2)))
         rec['consistency_true_kernel_x4'] = _consistency(sess)
         del sess
-    emit('kernelgan_session', device=name, scale=4, nb=23, nf=64, **rec)
+    emit('kernelgan_session', device=name, scale=4, nb=23, nf=64,
+         kernelgan_iters=KG_EVAL_ITERS, **rec)
 
     with tf32_on(), tempfile.TemporaryDirectory() as tmp:
         os.makedirs(f'{tmp}/lr')
@@ -4271,13 +4309,14 @@ def spatial_launches(spatial, counter) -> dict:
 
 
 def _spatial_train_setup(device, mesh=None):
-    """Phase 28's workload: the flagship trainer (``train_setup``), one
-    process or with its generator on the rank's rows of ``mesh``
-    (``spatial.cem_wrap`` of ``rrdbnet_module``); the seeded models, the
-    state (seed 2) and the global batch 16 (seed 71) of phase 26."""
+    """Phase 28's workload: the flagship trainer (``train_setup``) with
+    ``SPATIAL_TRAIN_NB`` blocks, one process or with its generator on the
+    rank's rows of ``mesh`` (``spatial.cem_wrap`` of ``rrdbnet_module``);
+    the seeded models, the state (seed 2) and the global batch 16 (seed
+    71) of phase 26."""
     from exsr_torch.parallel import spatial
     from exsr_torch.train.srragan import SRRaGANTrainer
-    exp, filt, trainer, g, d = train_setup(device)
+    exp, filt, trainer, g, d = train_setup(device, nb=SPATIAL_TRAIN_NB)
     if mesh is not None:
         sharded = spatial.cem_wrap(spatial.rrdbnet_module, filt,
                                    exp.train.scale)
@@ -4415,7 +4454,8 @@ def _grid_rows(full, rank, data, spatial):
     return full[i * b:(i + 1) * b, j * h:(j + 1) * h]
 
 
-def _spatial_train_compare(one, ranks, dims, tol, fault=False):
+def _spatial_train_compare(one, ranks, dims, tol, fault=False,
+                           exchanges=SPATIAL_EXCHANGES):
     """Each step of the ranks against the one process's: every rank's
     gradients and metrics equal; the gradients within ``tol`` of the
     largest element (``fault``: only recorded); the running statistics
@@ -4425,8 +4465,8 @@ def _spatial_train_compare(one, ranks, dims, tol, fault=False):
     rank (the state stays replicated) and within ``tol`` of the one
     process's; every rank's launches per step as one process's, with
     ``SPATIAL_TAPS_PER_BACKWARD`` adjoints a backward, and
-    ``SPATIAL_EXCHANGES`` halo exchanges a forward (a dual step's MAP
-    loop and its check beside the step included).  ``(rows, failures)``."""
+    ``exchanges`` halo exchanges a forward (a dual step's MAP loop and its
+    check beside the step included).  ``(rows, failures)``."""
     rows, failed = [], []
     by_kind = {(s['kind'], s['dual']): s for s in one}
     for steps in zip(*ranks):
@@ -4464,7 +4504,7 @@ def _spatial_train_compare(one, ranks, dims, tol, fault=False):
                    map_grad_gap=max(map_gaps, default=None),
                    own_zstar_vs_one=[s['zstar_gaps'] for s in steps],
                    launches_want=want,
-                   exchanges_want=SPATIAL_EXCHANGES * forwards)
+                   exchanges_want=exchanges * forwards)
         checks = [
             (all(torch_equal(s['grads'][k], s0['grads'][k])
                  for s in steps for k in s0['grads']), 'ranks differ'),
@@ -4480,10 +4520,9 @@ def _spatial_train_compare(one, ranks, dims, tol, fault=False):
              f'MAP gradients {map_gaps} > {DDP_MAP_TOL}'),
             (all(s['launches'] == want for s in steps),
              f'launches {row["launches_per_rank"]} != {want}'),
-            (all(s['exchanges'] == SPATIAL_EXCHANGES * forwards
-                 for s in steps),
+            (all(s['exchanges'] == exchanges * forwards for s in steps),
              f'exchanges {row["exchanges_per_rank"]} != '
-             f'{SPATIAL_EXCHANGES * forwards}')]
+             f'{exchanges * forwards}')]
         failed += [f'{key}: {what}' for ok, what in checks if not ok]
         rows.append(row)
     return rows, failed
@@ -4491,8 +4530,9 @@ def _spatial_train_compare(one, ranks, dims, tol, fault=False):
 
 def phase_spatial_train(device, name, smi, tmp, sr_ref):
     """Sharded SR training: ``SRRaGANTrainer(..., mesh=make_mesh(data,
-    spatial))`` with the flagship options (nb 23, nf 64, gc 32, LR 52, HR
-    208, global batch 16, ``DiscriminatorVGG128`` at 128) on gloo ranks
+    spatial))`` with the flagship options (nf 64, gc 32, LR 52, HR 208,
+    global batch 16, ``DiscriminatorVGG128`` at 128; ``SPATIAL_TRAIN_NB``
+    blocks, not 23) on gloo ranks
     sharing the card, the kernels built before they start, against one
     process on the card from the same state, batch and draws.  (a) A
     non-dual D and G step on a 1 x 2 grid, within phase 26's limit (phase
@@ -4503,9 +4543,9 @@ def phase_spatial_train(device, name, smi, tmp, sr_ref):
     computes whole not halved) on the non-dual G step, which must break
     the limit; (e) every rank's launches per step (2 / 1 / 1 CEM filters
     a forward, ``SPATIAL_TAPS_PER_BACKWARD`` adjoints a backward) and halo
-    exchanges (``SPATIAL_EXCHANGES`` a forward) checked exactly; (f) peak
-    memory, what was allocated before each step and its split, and ms per
-    step (after a warm-up step), per rank and for one process.  Ranks
+    exchanges (``SPATIAL_TRAIN_EXCHANGES`` a forward) checked exactly; (f)
+    peak memory, what was allocated before each step and its split, and
+    ms per step (after a warm-up step), per rank and for one process.  Ranks
     sharing one card and exchanging through the host are recorded, not
     claimed."""
     import torch
@@ -4535,7 +4575,8 @@ def phase_spatial_train(device, name, smi, tmp, sr_ref):
     failed, rec = [], {'card': smi, 'tol': tol}
     for grid, dims in SPATIAL_TRAIN_GRIDS.items():
         rows, bad = _spatial_train_compare(
-            one, [g['steps'] for g in got[grid]], dims, tol)
+            one, [g['steps'] for g in got[grid]], dims, tol,
+            exchanges=SPATIAL_TRAIN_EXCHANGES)
         failed += [f'{grid} {b}' for b in bad]
         for row in rows:
             emit('spatial_train_step', grid=grid, device=name, **row)
@@ -4553,7 +4594,8 @@ def phase_spatial_train(device, name, smi, tmp, sr_ref):
     rec.update(one_s=one_s, ranks_s=ranks_s,
                phase_s=time.perf_counter() - t_phase)
     emit('spatial_train', device=name, card=smi, grids=SPATIAL_TRAIN_GRIDS,
-         backend='gloo', batch=DDP_BATCH, tol=tol, one_s=one_s,
+         backend='gloo', batch=DDP_BATCH, nb=SPATIAL_TRAIN_NB, tol=tol,
+         one_s=one_s,
          ranks_s=ranks_s,
          phase_s=rec['phase_s'],
          ms_per_step={r['step']: {'one': r['one_ms'], 'ranks': r['rank_ms']}
@@ -4571,6 +4613,591 @@ def spatial_train_launches(rec, counter) -> dict:
     return {'launches_per_rank_per_step': {
         r['step']: [x[counter] for x in r['launches_per_rank']]
         for r in rec['1x2']}}
+
+
+def _count_reductions() -> dict:
+    """Counts the batch and instance norms' cross-rank reductions: each
+    forward's gather of the ranks' statistics (``bn_forward``) and its
+    backward's sum (``bn_backward``), in a dict the caller may reset.  On
+    the JPEG grids nothing else gathers through ``DataParallel`` or sums
+    through ``_AllSum``."""
+    from exsr_torch.parallel import dist as P
+    n = {'bn_forward': 0, 'bn_backward': 0}
+    gather, total = P.DataParallel.gather, P._AllSum.forward
+
+    def counted_gather(self, x, dim=0):
+        n['bn_forward'] += 1
+        return gather(self, x, dim)
+
+    def counted_sum(ctx, x, group):
+        n['bn_backward'] += 1
+        return total(ctx, x, group)
+    P.DataParallel.gather = counted_gather
+    P._AllSum.forward = staticmethod(counted_sum)
+    return n
+
+
+def _jpeg_map_feed(trainer, zstar_in, counts, exchanges):
+    """Wrap the Y trainer's MAP loop as :func:`_map_feed` wraps the SR
+    trainer's: each call records the MAP objective's gradient at the
+    loop's start (beside the step: its reductions and exchanges not
+    counted, its seconds in ``spent``) and the loop's Z*; with
+    ``zstar_in`` the rank's rows of the one process's Z* replace the
+    rank's own, whose gap to it is recorded."""
+    import torch
+    grid = trainer.grid
+    real = trainer._optimal_z
+    rec, gaps, grads, spent = [], [], [], []
+    feed = list(zstar_in or [])
+
+    def optimal_z(g, comp, uncomp, qf, theta0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = dict(counts), exchanges[0]
+        grads.append(trainer._map_grad(g, comp, uncomp, qf, theta0).cpu())
+        counts.update(before[0])
+        exchanges[0] = before[1]
+        spent.append(time.perf_counter() - t0)
+        z = real(g, comp, uncomp, qf, theta0)
+        rec.append(z.cpu())
+        if zstar_in is None:
+            return z
+        given = feed.pop(0).to(z.device)
+        given = given if grid is None else grid.rows(given)
+        diff = (z - given).abs()
+        gaps.append({'max_abs': float(diff.max()),
+                     'share_over_1e-3': float((diff > 1e-3).float().mean())})
+        return given
+    trainer._optimal_z = optimal_z
+    return rec, gaps, grads, spent
+
+
+def _jpeg_forwards(kind: str, dual: bool, iters: int) -> tuple:
+    """A Y step's generator forwards and backwards: a D step's fakes (no
+    backward), a G step's forward and backward per Z, a dual step's MAP
+    loop ``iters`` of each more."""
+    inner = iters if dual else 0
+    fwd = 2 if dual else 1
+    return fwd + inner, inner + (fwd if kind == 'g' else 0)
+
+
+def _jpeg_steps(trainer, state, batch, steps, zstar_in=None, warm=False):
+    """The Y trainer's steps ``(kind, dual)`` through its pieces (draws,
+    gradients, Adam), each from the state the call starts with, one
+    process or a rank, after one untimed non-dual step of each kind with
+    ``warm`` (cuDNN's and the critic's first calls):
+    per step the gradients, metrics, the generator's running statistics,
+    kernel launches, halo exchanges and norm reductions, host ms (less the
+    MAP check's), peak memory over what was allocated before, and the MAP
+    loop's records."""
+    import torch
+    from exsr_torch.device import full_fp32
+    from exsr_torch.train.srragan import adam_step
+    from exsr_torch.utils.misc import fetch_scalars
+    cfg = trainer.cfg
+    exchanges = _count_exchanges()
+    counts = _count_reductions()
+    feeds = _jpeg_map_feed(trainer, zstar_in, counts, exchanges)
+    b, h, w = batch['uncomp'].shape[:3]
+    shape = (b, h // 8, w // 8, 64)
+    start = _tree_clone(state.state_dict())
+    pre = [(k, False) for k in dict.fromkeys(k for k, _ in steps)] * warm
+    out = []
+    for kind, dual in pre + list(steps):
+        state.load_state_dict(_tree_clone(start))
+        seen = [len(f) for f in feeds]
+        zero_launches()
+        exchanges[0] = 0
+        counts.update(bn_forward=0, bn_backward=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with full_fp32():
+            draw = trainer.draw_d if kind == 'd' else trainer.draw_g
+            draws = draw(state, shape, dual)
+            if kind == 'd':
+                grads, metrics = trainer.d_grads(state, batch, draws, dual)
+                module, opt, lr = state.d, state.d_opt, cfg.lr_d
+            else:
+                grads, metrics, state.ratio_stats = trainer.g_grads(
+                    state, batch, draws, dual, True)
+                module, opt, lr = state.g, state.g_opt, cfg.lr_g
+            grads = {n: g.detach().double().cpu() for (n, _), g in
+                     zip(module.named_parameters(), grads)}
+            adam_step(state, opt, lr, cfg)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0 - sum(feeds[-1][seen[-1]:]))
+        out.append({
+            'kind': kind, 'dual': dual, 'map_iters': cfg.optimal_z_iters,
+            'ms': ms, 'grads': grads, 'metrics': fetch_scalars(metrics),
+            'launches': read_launches(), 'exchanges': exchanges[0],
+            **counts,
+            'memory': {'base_gb': base / 1e9,
+                       'peak_gb': torch.cuda.max_memory_allocated() / 1e9},
+            **dict(zip(('zstar', 'zstar_gaps', 'map_grad'),
+                       [f[n:] for f, n in zip(feeds, seen)])),
+            'running': {f'g.{k}': v.double().cpu()
+                        for k, v in state.g.state_dict().items()
+                        if 'running' in k}})
+    del trainer._optimal_z
+    state.load_state_dict(start)
+    return out[len(pre):]
+
+
+def _chroma_steps(trainer, state, batch, warm=False):
+    """The chroma trainer's step as two records from one state: its
+    inputs (the frozen Y generator's decoding) with the D gradients, then
+    the G gradients against the same critic; after one untimed call with
+    ``warm``.  Per record what :func:`_jpeg_steps` records."""
+    import torch
+    from exsr_torch.device import full_fp32
+    from exsr_torch.utils.misc import fetch_scalars
+    exchanges = _count_exchanges()
+    counts = _count_reductions()
+    out = []
+    for rep in range(1 + warm):
+        draws = trainer.draw(state, batch['uncomp'].shape[0])
+        recs = []
+        for kind in ('d', 'g'):
+            zero_launches()
+            exchanges[0] = 0
+            counts.update(bn_forward=0, bn_backward=0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            with full_fp32():
+                if kind == 'd':
+                    local, dr = trainer.local(batch, draws)
+                    inputs = trainer.prepare(local, dr)
+                    grads, metrics = trainer.d_grads(state, inputs, dr)
+                    module = state.d
+                else:
+                    grads, metrics = trainer.g_grads(state, inputs, True)
+                    module = state.g
+                grads = {n: g.detach().double().cpu() for (n, _), g in
+                         zip(module.named_parameters(), grads)}
+            torch.cuda.synchronize()
+            recs.append({
+                'kind': f'chroma_{kind}', 'dual': False, 'map_iters': 0,
+                'ms': 1e3 * (time.perf_counter() - t0), 'grads': grads,
+                'metrics': fetch_scalars(metrics),
+                'launches': read_launches(), 'exchanges': exchanges[0],
+                **counts,
+                'memory': {'base_gb': base / 1e9, 'peak_gb':
+                           torch.cuda.max_memory_allocated() / 1e9},
+                'zstar': [], 'zstar_gaps': [], 'map_grad': [],
+                'running': {f'g.{k}': v.double().cpu()
+                            for k, v in state.g.state_dict().items()
+                            if 'running' in k}})
+        out = recs
+    return out
+
+
+def _spatial_jpeg_setup(device, which, mesh=None):
+    """Phase 29's trainers: ``'y'`` the Y trainer at train_jpeg's defaults
+    (``jpeg_train_setup``, batch 16), ``'svd'`` the same with
+    ``SVD_structure_tensor`` latents (L_struct on), ``'chroma'`` the chroma
+    trainer at the chroma CLI's width; ``(trainer, state, batch)``, one
+    process or on the rank's rows of ``mesh``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from exsr_torch.models.dncnn import DnCNN, DnCNNConfig, \
+        DnCNNDiscriminator
+    from exsr_torch.train.decomp import DecompConfig, DecompTrainer
+    from exsr_torch.train.decomp_chroma import ChromaDecompTrainer
+    if which == 'chroma':
+        patch = 256
+        gy = DnCNN(DnCNNConfig(n_channels=JPEG_NF, depth=JPEG_NB,
+                               num_latent_channels=64), seed=7)
+        gc = DnCNN(DnCNNConfig(n_channels=CHROMA_NF, depth=JPEG_NB,
+                               in_nc=384, out_nc=128, chroma_generator=True,
+                               block_size=8, num_latent_channels=0), seed=0)
+        d = DnCNNDiscriminator(n_channels=CHROMA_NF, depth=JPEG_NB,
+                               expected_input_size=patch // 16, in_nc=384,
+                               seed=1)
+        tr = ChromaDecompTrainer(DecompConfig(latent_channels=0,
+                                              chroma_mode=True), gy,
+                                 mesh=mesh)
+        state = tr.init_state(gc, d, seed=2, device=device)
+        rng = np.random.default_rng(57)
+        ycbcr = np.concatenate([_y_images(JPEG_TRAIN_BATCH, patch, 58),
+                                rng.uniform(60, 200, size=(
+                                    JPEG_TRAIN_BATCH, patch, patch, 2))],
+                               -1).astype(np.float32)
+        batch = {'uncomp': torch.from_numpy(ycbcr),
+                 'qf': torch.from_numpy(rng.integers(5, 51,
+                                                     JPEG_TRAIN_BATCH)
+                                        .astype(np.int32))}
+    else:
+        tr, g, d, batch = jpeg_train_setup(JPEG_TRAIN_BATCH, seed=73)
+        cfg = tr.cfg
+        if which == 'svd':
+            cfg = dataclasses.replace(cfg,
+                                      latent_channels='SVD_structure_tensor')
+            g = DnCNN(DnCNNConfig(n_channels=JPEG_NF, depth=JPEG_NB,
+                                  num_latent_channels=cfg
+                                  .num_latent_channels), seed=0)
+        tr = DecompTrainer(cfg, mesh=mesh)
+        state = tr.init_state(g, d, seed=2, device=device)
+    return tr, state, {k: v.to(device) for k, v in batch.items()}
+
+
+def _plain_setup(device, mesh=None):
+    """The Z-less ``MSRResNet`` (nf 64, nb 16) in the flagship trainer
+    (``train_setup``'s options, critic and batch 16 of phase 28), one
+    process or on the rank's rows of ``mesh`` through
+    ``spatial.cem_wrap``; ``(trainer, state, batch)``."""
+    from exsr_torch.cem.cem import cem_wrap
+    from exsr_torch.models.classifiers import MSRResNet
+    from exsr_torch.parallel import spatial
+    from exsr_torch.train.srragan import SRRaGANTrainer
+    exp, filt, trainer, _, d = train_setup(device)
+    sf = exp.train.scale
+    if mesh is None:
+        wrapped = cem_wrap(lambda m, x, z: m(x), filt, upscale=sf)
+        g_apply = lambda m, x, z: wrapped(m, x, z, 0, pre_pad=False)
+    else:
+        sharded = spatial.cem_wrap(spatial.rrdbnet_module, filt, sf)
+        g_apply = lambda m, x, z: sharded(m, x, None, 0, False, mesh)
+    trainer = SRRaGANTrainer(exp.train, g_apply, trainer.margins_hr,
+                             mesh=mesh)
+    g = MSRResNet(nf=PLAIN_NF, nb=PLAIN_NB, upscale=sf, seed=0)
+    state = trainer.init_state(g, d, seed=2, device=device)
+    return trainer, state, train_batch(exp.train, DDP_BATCH, device,
+                                       seed=71)
+
+
+def _plain_forwards(device, mesh=None):
+    """``MSRResNet`` and ``SRResNet`` (nf 64, nb 16, x4) CEM-wrapped and
+    pre-padded, on phase 27's batch 2 at LR 128, one process or on the
+    rank's shards of ``mesh``: per class the output (one process; on a
+    grid gathered, rank 0's), the launches and halo exchanges per
+    forward, ms and peak memory."""
+    import torch
+    from exsr_torch.cem.cem import CEM, CEMConf, cem_wrap
+    from exsr_torch.models.classifiers import MSRResNet, SRResNet
+    from exsr_torch.parallel import spatial
+    from exsr_torch.parallel.mesh import ShardingRules
+    cem = CEM.create(CEMConf(scale_factor=SCALE))
+    filt = cem.device_filters(3, device=device)
+    margins = cem.invalidity_margins_lr
+    lr, _ = _spatial_inputs(SPATIAL_BATCH, SPATIAL_LR, 271)
+    rules = None if mesh is None else ShardingRules(mesh)
+    if rules is not None:
+        lr = rules.shard_batch(lr)
+        apply = spatial.cem_wrap(spatial.rrdbnet_module, filt, SCALE)
+    else:
+        apply = cem_wrap(lambda m, x, z: m(x), filt, upscale=SCALE)
+    lr = lr.to(device)
+    exchanges = _count_exchanges()
+    out = {}
+    for cls in (MSRResNet, SRResNet):
+        net = cls(nf=PLAIN_NF, nb=PLAIN_NB, upscale=SCALE, seed=0).to(device)
+        if rules is None:
+            fwd = lambda x: apply(net, x, None, margins, pre_pad=True)
+        else:
+            fwd = lambda x: apply(net, x, None, margins, True, mesh)
+        exchanges[0] = 0
+        with torch.inference_mode():
+            y, launches, ms = _spatial_timed(fwd, (lr,), SPATIAL_REPS)
+            rec = {'launches': launches, 'ms': ms,
+                   'exchanges': exchanges[0] / (SPATIAL_REPS + 1)}
+            if rules is not None:
+                y = rules.gather(y)
+            if rules is None or mesh.rank == 0:
+                rec['out'] = y.cpu()
+            del y
+            rec.update(_spatial_memory(fwd, (lr,)))
+        out[cls.__name__] = rec
+        del net, fwd
+        torch.cuda.empty_cache()
+    return out
+
+
+def _spatial_jpeg_workloads(device, mesh=None, zstar_in=None, faults=False):
+    """Phase 29's workloads on ``device``, one process or a rank of the
+    1 x 2 grid ``mesh``: the Y steps, the SVD-latent G step, the chroma
+    step and the ``MSRResNet`` G step; on a rank with ``faults`` the
+    planted faults' steps from the same starts."""
+    import torch
+    from exsr_torch.parallel.dist import sync_batch_norm
+    from exsr_torch.train import decomp
+    res = {}
+    tr, state, batch = _spatial_jpeg_setup(device, 'y', mesh)
+    res['y'] = _jpeg_steps(tr, state, batch, SPATIAL_JPEG_Y_STEPS, zstar_in,
+                           warm=True)
+    if faults:
+        # the generator's batch norms over the data group only: on a
+        # 1 x 2 grid the rank's own rows
+        sync_batch_norm(state.g, mesh.dp)
+        res['fault_bn'] = _jpeg_steps(tr, state, batch, [('g', False)])
+    del tr, state, batch
+    torch.cuda.empty_cache()
+    tr, state, batch = _spatial_jpeg_setup(device, 'svd', mesh)
+    res['svd'] = _jpeg_steps(tr, state, batch, [('g', False)], warm=True)
+    if faults:
+        real, spatial = decomp.filter_loss, mesh.spatial
+        decomp.filter_loss = lambda *a, **k: (
+            lambda out: (out[0] * spatial, out[1]))(real(*a, **k))
+        try:
+            res['fault_lstruct'] = _jpeg_steps(tr, state, batch,
+                                               [('g', False)])
+        finally:
+            decomp.filter_loss = real
+    del tr, state, batch
+    torch.cuda.empty_cache()
+    res['chroma'] = _chroma_steps(*_spatial_jpeg_setup(device, 'chroma',
+                                                       mesh), warm=True)
+    torch.cuda.empty_cache()
+    res['msr'] = _grid_steps(*_plain_setup(device, mesh), [('g', False)],
+                             warm=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def _spatial_jpeg_rank(init, rank, world, grid, out_path, zstar_path):
+    """One gloo rank of phase 29 on the card (``python -c`` entry point):
+    on the 1 x 2 grid the trainers' workloads and the planted faults, on
+    the 1 x 4 grid the plain generators' forwards."""
+    import torch
+    import torch.distributed as dist
+    from exsr_torch.parallel.mesh import make_mesh
+    device = torch.device('cuda', 0)
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group('gloo', init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        if grid == 'plain':
+            mesh = make_mesh(*PLAIN_GRID, device=device)
+            res = _plain_forwards(device, mesh)
+        else:
+            mesh = make_mesh(*SPATIAL_JPEG_GRID, device=device)
+            res = _spatial_jpeg_workloads(device, mesh,
+                                          torch.load(zstar_path), True)
+        torch.save(res, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def _jpeg_grid_compare(one, ranks, tols, bn_per_forward, fault=False):
+    """Each JPEG step of the ranks against the one process's: every rank's
+    gradients and metrics equal; the gradients within ``tols[kind]`` of
+    the largest element (``fault``: only recorded); the running
+    statistics within 1e-4 (relative above 1); a dual step's MAP gradient
+    rows within ``DDP_MAP_TOL``; no kernel launched; per rank one halo
+    exchange and ``bn_per_forward`` norm gathers per generator forward,
+    as many sums per backward (the chroma D record adds the frozen Y
+    generator's forward, which reduces nothing); one process none.
+    ``(rows, failures)``."""
+    rows, failed = [], []
+    for s1, steps in zip(one, zip(*ranks)):
+        s0 = steps[0]
+        kind = s1['kind'][-1]
+        key = f'{s1["kind"]}_{"dual" if s1["dual"] else "single"}'
+        tol = tols[kind]
+        gap = _grad_gap(s0['grads'], s1['grads'])
+        metrics = {k: abs(s0['metrics'][k] - v) / max(abs(v), 1e-6)
+                   for k, v in s1['metrics'].items()}
+        row = dict(step=key, grad_gap=gap, tol=tol,
+                   worst=_worst(s0['grads'], s1['grads']),
+                   metrics_rel_err=metrics, one_ms=s1['ms'],
+                   rank_ms=[s['ms'] for s in steps],
+                   one_memory=s1['memory'],
+                   rank_memory=[s['memory'] for s in steps],
+                   exchanges_per_rank=[s['exchanges'] for s in steps],
+                   bn_forward_per_rank=[s['bn_forward'] for s in steps],
+                   bn_backward_per_rank=[s['bn_backward'] for s in steps],
+                   running_max_rel_err=max(_stats_gap(s, s1) for s in steps))
+        if fault:
+            rows.append(row)
+            continue
+        if s1['kind'].startswith('chroma'):
+            fwd, bwd = 1, int(kind == 'g')
+            ex = fwd + int(kind == 'd')
+        else:
+            fwd, bwd = _jpeg_forwards(kind, s1['dual'], s1['map_iters'])
+            ex = fwd
+        want = {'exchanges': ex, 'bn_forward': bn_per_forward * fwd,
+                'bn_backward': bn_per_forward * bwd}
+        stats = row['running_max_rel_err']
+        map_gaps = []
+        for r, s in enumerate(steps):
+            for mine, full in zip(s['map_grad'], s1['map_grad']):
+                part = _grid_rows(full, r, *SPATIAL_JPEG_GRID).double()
+                map_gaps.append(float((mine.double() - part).norm()
+                                      / part.norm()))
+        row.update(map_grad_gap=max(map_gaps, default=None),
+                   own_zstar_vs_one=[s['zstar_gaps'] for s in steps],
+                   counts_want=want)
+        checks = [
+            (all(torch_equal(s['grads'][k], s0['grads'][k])
+                 for s in steps for k in s0['grads']), 'ranks differ'),
+            (all(s['metrics'] == s0['metrics'] for s in steps),
+             'metrics differ between ranks'),
+            (gap <= tol, f'gradients {gap} > {tol}'),
+            (stats <= 1e-4, f'running statistics {stats} > 1e-4'),
+            (all(g <= DDP_MAP_TOL for g in map_gaps),
+             f'MAP gradients {map_gaps} > {DDP_MAP_TOL}'),
+            (all(not any(s['launches'].values()) for s in steps + (s1,)),
+             'a kernel was launched on the JPEG path'),
+            (all(s1[k] == 0 for k in want), f'one process reduced: {s1}'),
+            (all(s[k] == v for s in steps for k, v in want.items()),
+             f'exchanges and reductions {row["exchanges_per_rank"]} '
+             f'{row["bn_forward_per_rank"]} {row["bn_backward_per_rank"]}'
+             f' != {want}')]
+        failed += [f'{key}: {what}' for ok, what in checks if not ok]
+        rows.append(row)
+    return rows, failed
+
+
+def _plain_compare(one, ranks) -> tuple:
+    """The plain generators' sharded forwards against one process: the
+    gathered output within ``PLAIN_TOL`` of the largest output, each
+    rank's launches one CEM's (2 / 1 / 1) and ``PLAIN_EXCHANGES``
+    exchanges per forward.  ``(rows, failures)``."""
+    rows, failed = [], []
+    for arch, rec1 in one.items():
+        got = ranks[0][arch]['out']
+        gap = float((got - rec1['out']).abs().max()
+                    / rec1['out'].abs().max())
+        want = per_forward(1)
+        per = [r[arch]['launches'] for r in ranks]
+        row = dict(arch=arch, max_rel_gap=gap, tol=PLAIN_TOL,
+                   one_ms=rec1['ms'], rank_ms=[r[arch]['ms'] for r in ranks],
+                   one_peak_gb=rec1['peak_gb'],
+                   rank_peak_gb=[r[arch]['peak_gb'] for r in ranks],
+                   launches_per_rank_per_forward=per,
+                   exchanges_per_rank=[r[arch]['exchanges'] for r in ranks])
+        checks = [(gap <= PLAIN_TOL, f'output {gap} > {PLAIN_TOL}'),
+                  (all(p == want for p in per), f'launches {per} != {want}'),
+                  (all(r[arch]['exchanges'] == PLAIN_EXCHANGES
+                       for r in ranks),
+                   f'exchanges {row["exchanges_per_rank"]} != '
+                   f'{PLAIN_EXCHANGES}')]
+        failed += [f'{arch}: {what}' for ok, what in checks if not ok]
+        rows.append(row)
+    return rows, failed
+
+
+def phase_spatial_jpeg(device, name, smi, tmp, sr_ref):
+    """Sharded JPEG training and the Z-less generators on shards, on gloo
+    ranks sharing the card, each step from the same state, batch and draws
+    as one process on the card.  (a) The Y trainer at train_jpeg's
+    defaults (patch 256, batch 16, DnCNN nf 320 nb 10 with batch norm, the
+    layer-norm critic) on a 1 x 2 grid: the non-dual D and G steps and a
+    dual G step (on the one process's Z*; the MAP gradient's rows within
+    ``DDP_MAP_TOL``), within phase 26's JPEG limits ``DDP_JPEG_TOL``; (b)
+    its G step with SVD latents (L_struct on the gathered image), whose
+    L_struct metric must be within ``LSTRUCT_METRIC_TOL``; (c) the chroma
+    trainer's step (D, then G against the same critic); (d) ``MSRResNet``
+    and ``SRResNet`` (nf 64, nb 16, x4) CEM-wrapped forwards on a 1 x 4
+    grid against one process; (e) a non-dual G step of the flagship
+    trainer with ``MSRResNet`` on 1 x 2, within phase 28's limit, its CEM
+    launches and exchanges exact; (f) the planted faults, the generator's
+    batch norms over the data group only and L_struct not halved, each
+    of which must break a limit the sound steps keep (the gradients', the
+    running statistics' 1e-4 or the L_struct metric's); (g) per step ms
+    and peak memory per
+    rank and for one process, halo exchanges and norm reductions per
+    rank, checked exactly."""
+    import torch
+    t_phase = time.perf_counter()
+    one = _spatial_jpeg_workloads(device)
+    one['plain'] = _plain_forwards(device)
+    torch.save([z for s in one['y'] for z in s['zstar']],
+               f'{tmp}/spatial_jpeg_zstar.pt')
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t_phase
+    got, ranks_s = {}, {}
+    for grid, world in (('trainers', 2), ('plain', 4)):
+        cmds = {f'spatial_jpeg_{grid}_rank{r}': [sys.executable, '-c', (
+            f'import chip_smoke; chip_smoke._spatial_jpeg_rank('
+            f'"file://{tmp}/spatial_jpeg_{grid}_init", {r}, {world}, '
+            f'"{grid}", "{tmp}/spatial_jpeg_{grid}_{r}.pt", '
+            f'"{tmp}/spatial_jpeg_zstar.pt")')] for r in range(world)}
+        t0 = time.perf_counter()
+        with _processes(cmds, tmp, 'spatial_jpeg') as wait:
+            wait(SPATIAL_JPEG_TIMEOUT)
+        ranks_s[grid] = time.perf_counter() - t0
+        got[grid] = [torch.load(f'{tmp}/spatial_jpeg_{grid}_{r}.pt',
+                                weights_only=False) for r in range(world)]
+    ranks = got['trainers']
+    failed, rec = [], {'card': smi}
+    bn = JPEG_NB - 2
+    for work in ('y', 'svd', 'chroma'):
+        rows, bad = _jpeg_grid_compare(one[work], [r[work] for r in ranks],
+                                       DDP_JPEG_TOL, bn)
+        failed += [f'{work} {b}' for b in bad]
+        rec[work] = rows
+    lstruct = rec['svd'][0]['metrics_rel_err']['l_g_latent']
+    if lstruct > LSTRUCT_METRIC_TOL:
+        failed.append(f'svd L_struct {lstruct} > {LSTRUCT_METRIC_TOL}')
+    rec['plain'], bad = _plain_compare(one['plain'], got['plain'])
+    failed += bad
+    tol = _allowed_gap(sr_ref)
+    rows, bad = _spatial_train_compare(one['msr'], [r['msr'] for r in ranks],
+                                       SPATIAL_JPEG_GRID, tol,
+                                       exchanges=PLAIN_EXCHANGES)
+    failed += [f'msr {b}' for b in bad]
+    rec['msr'] = rows
+    faults = {}
+    for fault, work in (('fault_bn', 'y'), ('fault_lstruct', 'svd')):
+        base = [s for s in one[work] if s['kind'] == 'g' and not s['dual']]
+        row = _jpeg_grid_compare(base, [r[fault] for r in ranks],
+                                 DDP_JPEG_TOL, bn, fault=True)[0][0]
+        lat = row['metrics_rel_err'].get('l_g_latent', 0.0)
+        # a fault is caught when it breaks a limit the sound steps keep
+        row.update(l_g_latent_rel_err=lat, caught=(
+            row['grad_gap'] > row['tol']
+            or row['running_max_rel_err'] > 1e-4
+            or lat > LSTRUCT_METRIC_TOL))
+        faults[fault] = row
+        emit('spatial_jpeg_fault', fault=fault, grid='1x2', device=name,
+             **{k: row[k] for k in ('step', 'grad_gap', 'tol', 'caught',
+                                    'running_max_rel_err',
+                                    'l_g_latent_rel_err')})
+        if not row['caught']:
+            failed.append(f'the planted fault {fault} passed: {row}')
+    for work in ('y', 'svd', 'chroma', 'msr'):
+        for row in rec[work]:
+            emit('spatial_jpeg_step', work=work, grid='1x2', device=name,
+                 **row)
+    for row in rec['plain']:
+        emit('spatial_jpeg_plain', grid='1x4', device=name, **row)
+    rec.update(one_s=one_s, ranks_s=ranks_s, faults=faults,
+               phase_s=time.perf_counter() - t_phase)
+    emit('spatial_jpeg', device=name, card=smi, backend='gloo',
+         grid='1x2', plain_grid='1x4', batch=JPEG_TRAIN_BATCH,
+         tols=DDP_JPEG_TOL, sr_tol=tol, one_s=one_s, ranks_s=ranks_s,
+         phase_s=rec['phase_s'],
+         ms_per_step={f'{w}_{r["step"]}': {'one': r['one_ms'],
+                                           'ranks': r['rank_ms']}
+                      for w in ('y', 'svd', 'chroma', 'msr')
+                      for r in rec[w]},
+         peak_gb_per_step={f'{w}_{r["step"]}': {
+             'one': r['one_memory']['peak_gb'],
+             'ranks': [m['peak_gb'] for m in r['rank_memory']]}
+             for w in ('y', 'svd', 'chroma', 'msr') for r in rec[w]})
+    check(not failed, f'spatial_jpeg: {failed}')
+    return rec
+
+
+def spatial_jpeg_launches(rec, counter) -> dict:
+    """A CEM kernel's launches on each rank in phase 29: per plain
+    forward on 1 x 4, per ``MSRResNet`` G step on 1 x 2; the JPEG steps
+    launch none (checked)."""
+    return {'launches_per_rank_per_forward': {
+                r['arch']: [p.get(counter, 0)
+                            for p in r['launches_per_rank_per_forward']]
+                for r in rec['plain']},
+            'launches_per_rank_per_msrresnet_g_step': [
+                x[counter] for x in rec['msr'][0]['launches_per_rank']],
+            'jpeg': 'none'}
 
 
 def main() -> int:
@@ -4611,7 +5238,7 @@ def main() -> int:
 
 
 def _phases(device, name, smi, tmp) -> int:
-    """Phases 3-28 and the last lines; ``tmp`` is a scratch directory."""
+    """Phases 3-29 and the last lines; ``tmp`` is a scratch directory."""
     import torch
     from exsr_torch.cem.cem import CEM, CEMConf
     cem = CEM.create(CEMConf(scale_factor=SCALE))
@@ -4645,6 +5272,7 @@ def _phases(device, name, smi, tmp) -> int:
     ddp = phase_train_ddp(device, name, tmp, sr_ref)
     spat = phase_spatial(device, name, smi, tmp, cem, filt)
     spat_train = phase_spatial_train(device, name, smi, tmp, sr_ref)
+    spat_jpeg = phase_spatial_jpeg(device, name, smi, tmp, sr_ref)
     train = train_rows(train_records, train_kern, train_taps)
 
     # launches: the total over the forwards of the path that runs the
@@ -4671,6 +5299,7 @@ def _phases(device, name, smi, tmp) -> int:
             spatial=spatial_launches(spat, f'sepfilter_{k}'),
             spatial_train=spatial_train_launches(spat_train,
                                                  f'sepfilter_{k}'),
+            spatial_jpeg=spatial_jpeg_launches(spat_jpeg, f'sepfilter_{k}'),
             **{f'even_taps_{f}': even[EVEN_ROW[k]][f] for f in (
                 'taps', 'shape', 'max_abs_err', 'ms', 'graph_ms',
                 'bound_ms')})
@@ -4701,6 +5330,7 @@ def _phases(device, name, smi, tmp) -> int:
              ddp=ddp_launches(ddp, 'sepfilter_taps'),
              spatial_train=spatial_train_launches(spat_train,
                                                   'sepfilter_taps'),
+             spatial_jpeg=spatial_jpeg_launches(spat_jpeg, 'sepfilter_taps'),
              even_taps_max_rel_err=max(r['max_rel_err']
                                        for r in even_taps.values()),
              even_taps_ms=sum(r['ms'] for r in even_taps.values()),

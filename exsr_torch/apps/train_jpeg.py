@@ -220,38 +220,44 @@ def main(argv=None):
     # the first SIGINT stops at the next step boundary, after which the
     # final checkpoint is still written
     stop_requested = install_sigint_stop()
-    for batch in loader.stream(0):
-        if ctl.step >= cfg.niter or run.stop(stop_requested()):
-            break
-        batch = _to_device(batch, device)
-        dual = (cfg.optimal_z_weight is not None
-                and ctl.generator_started_learning)
-        d_staged = g_staged = None
-        if ctl.want_d_step():
-            state, dm = trainer.d_step(state, batch, dual=dual)
-            d_staged = stage_scalars(dm)
-        if ctl.want_g_step():
-            state, gm = trainer.g_step(state, batch, dual=dual,
-                                       use_gan=True)
-            g_staged = stage_scalars(gm)
-        # the metrics of step t are read after step t + 1 is enqueued, so
-        # the gating sees records one step later than a synchronous loop
-        apply_pending()
-        pending = (d_staged, g_staged)
-        state = trainer.advance(state)
-        ctl.tick()
-        if ctl.step % args.print_freq == 0:
-            rate = args.print_freq / max(time.time() - t0, 1e-9)
-            t0 = time.time()
-            run.say(json.dumps({'step': ctl.step,
-                                'steps_per_s': round(rate, 3)}))
-            mlog.append(ctl.step, **log_accum)
-            if run.main:
-                mlog.save(log_path)
-        if val_ds is not None and ctl.step % args.val_freq == 0 and run.main:
-            validate(state)
-        run.save(ckpts, ctl.step, state, controller_state=_ctl_snapshot(ctl))
-    stop_requested.restore()
+    try:
+        for batch in loader.stream(0):
+            if ctl.step >= cfg.niter or run.stop(stop_requested()):
+                break
+            batch = _to_device(batch, device)
+            dual = (cfg.optimal_z_weight is not None
+                    and ctl.generator_started_learning)
+            d_staged = g_staged = None
+            if ctl.want_d_step():
+                state, dm = trainer.d_step(state, batch, dual=dual)
+                d_staged = stage_scalars(dm)
+            if ctl.want_g_step():
+                state, gm = trainer.g_step(state, batch, dual=dual,
+                                           use_gan=True)
+                g_staged = stage_scalars(gm)
+            # the metrics of step t are read after step t + 1 is enqueued,
+            # so the gating sees records one step later than a synchronous
+            # loop
+            apply_pending()
+            pending = (d_staged, g_staged)
+            state = trainer.advance(state)
+            ctl.tick()
+            if ctl.step % args.print_freq == 0:
+                rate = args.print_freq / max(time.time() - t0, 1e-9)
+                t0 = time.time()
+                run.say(json.dumps({'step': ctl.step,
+                                    'steps_per_s': round(rate, 3)}))
+                mlog.append(ctl.step, **log_accum)
+                if run.main:
+                    mlog.save(log_path)
+            if val_ds is not None and ctl.step % args.val_freq == 0 \
+                    and run.main:
+                validate(state)
+            run.save(ckpts, ctl.step, state,
+                     controller_state=_ctl_snapshot(ctl))
+    finally:
+        # the caller's handler is back, also after an exception
+        stop_requested.restore()
     apply_pending()
     run.save(ckpts, ctl.step, state, controller_state=_ctl_snapshot(ctl),
              force=True)

@@ -355,87 +355,91 @@ def main(argv=None):
     tacc = {'t_data': 0.0, 't_step': 0.0, 't_fetch': 0.0}
     t_last = time.perf_counter()
     stop_requested = install_sigint_stop()
-    for batch in loader.stream(0):
-        if ctl.step >= cfg.niter or run.stop(stop_requested()):
-            break
-        batch = {k: torch.from_numpy(batch[k]).to(device)
-                 for k in ('lr', 'hr')}
-        t_now = time.perf_counter()
-        tacc['t_data'] += t_now - t_last
-        t_last = t_now
-        dual = (cfg.optimal_z_weight is not None
-                and ctl.generator_started_learning)
-        if args.init_phase:
-            do_d, do_g = False, True  # no D in the pretraining phase
-        else:
-            do_d = ctl.want_d_step()
-            do_g = ctl.want_g_step()
-        d_staged = g_staged = None
-        if do_d:
-            state, d_metrics = trainer.d_step(state, batch, dual=dual)
-            d_staged = stage_scalars(d_metrics)
-        if do_g:
-            state, g_metrics = trainer.g_step(state, batch, dual=dual,
-                                              use_gan=not args.init_phase)
-            g_staged = stage_scalars(g_metrics)
-        t_now = time.perf_counter()
-        tacc['t_step'] += t_now - t_last
-        t_last = t_now
-        # the metrics of step t are read after step t + 1 is enqueued, so
-        # the gating sees records one step later than a synchronous loop
-        apply_pending()
-        pending = (d_staged, g_staged)
-        t_now = time.perf_counter()
-        tacc['t_fetch'] += t_now - t_last
-        t_last = t_now
-        state = trainer.advance(state)
-        ctl.tick()
+    try:
+        for batch in loader.stream(0):
+            if ctl.step >= cfg.niter or run.stop(stop_requested()):
+                break
+            batch = {k: torch.from_numpy(batch[k]).to(device)
+                     for k in ('lr', 'hr')}
+            t_now = time.perf_counter()
+            tacc['t_data'] += t_now - t_last
+            t_last = t_now
+            dual = (cfg.optimal_z_weight is not None
+                    and ctl.generator_started_learning)
+            if args.init_phase:
+                do_d, do_g = False, True  # no D in the pretraining phase
+            else:
+                do_d = ctl.want_d_step()
+                do_g = ctl.want_g_step()
+            d_staged = g_staged = None
+            if do_d:
+                state, d_metrics = trainer.d_step(state, batch, dual=dual)
+                d_staged = stage_scalars(d_metrics)
+            if do_g:
+                state, g_metrics = trainer.g_step(state, batch, dual=dual,
+                                                  use_gan=not args.init_phase)
+                g_staged = stage_scalars(g_metrics)
+            t_now = time.perf_counter()
+            tacc['t_step'] += t_now - t_last
+            t_last = t_now
+            # the metrics of step t are read after step t + 1 is enqueued, so
+            # the gating sees records one step later than a synchronous loop
+            apply_pending()
+            pending = (d_staged, g_staged)
+            t_now = time.perf_counter()
+            tacc['t_fetch'] += t_now - t_last
+            t_last = t_now
+            state = trainer.advance(state)
+            ctl.tick()
 
-        if ctl.step % cfg.steps_4_loss_std == 0:
-            rollback, too_low = ctl.check_lr_drop()
-            if ctl.log['D_loss_STD']:
-                s_, v_ = ctl.log['D_loss_STD'][-1]
-                mlog.append(s_, D_loss_STD=v_)
-            if too_low:
-                say('LR below 1e-8: stopping (instability).')
-                return
-            if not rollback and args.collapse_guard and \
-                    ctl.check_critic_collapse():
-                too_low = ctl.halve_lr()
-                rollback = True
-                say('critic collapse detected '
-                    '(|D_logits_diff| ~ 0 with inflating |l_d|)')
+            if ctl.step % cfg.steps_4_loss_std == 0:
+                rollback, too_low = ctl.check_lr_drop()
+                if ctl.log['D_loss_STD']:
+                    s_, v_ = ctl.log['D_loss_STD'][-1]
+                    mlog.append(s_, D_loss_STD=v_)
                 if too_low:
                     say('LR below 1e-8: stopping (instability).')
                     return
-            if rollback:
-                # the discarded step's staged metrics must not reach the
-                # gating window after the rollback
-                pending = (None, None)
-                mlog.append(ctl.step, rollback_lr_scale=ctl.lr_scale)
-                back_step, state = ckpts.restore_before(
-                    state, ctl.step - cfg.steps_4_loss_std)
-                state.lr_scale = ctl.lr_scale
-                say(f'instability rollback to step {back_step}, '
-                    f'lr_scale={ctl.lr_scale}')
-        if ctl.step % args.print_freq == 0:
-            log_accum['steps_per_s'] = args.print_freq / max(
-                time.time() - t0, 1e-9)
-            t0 = time.time()
-            for k in tacc:
-                log_accum[k + '_ms'] = 1e3 * tacc[k] / args.print_freq
-                tacc[k] = 0.0
-            say(json.dumps({'step': ctl.step, **{
-                k: round(v, 5) for k, v in log_accum.items()}}))
-            mlog.append(ctl.step, **log_accum)
-            if tb is not None:
-                tb.log(ctl.step, **log_accum)
-            if run.main:
-                mlog.save(log_path)
-        if val_ds and ctl.step % args.val_freq == 0 and run.main:
-            validate(ctl.step)
-        run.save(ckpts, ctl.step, state, controller_state=ctl_snapshot())
-    stop_requested.restore()
+                if not rollback and args.collapse_guard and \
+                        ctl.check_critic_collapse():
+                    too_low = ctl.halve_lr()
+                    rollback = True
+                    say('critic collapse detected '
+                        '(|D_logits_diff| ~ 0 with inflating |l_d|)')
+                    if too_low:
+                        say('LR below 1e-8: stopping (instability).')
+                        return
+                if rollback:
+                    # the discarded step's staged metrics must not reach the
+                    # gating window after the rollback
+                    pending = (None, None)
+                    mlog.append(ctl.step, rollback_lr_scale=ctl.lr_scale)
+                    back_step, state = ckpts.restore_before(
+                        state, ctl.step - cfg.steps_4_loss_std)
+                    state.lr_scale = ctl.lr_scale
+                    say(f'instability rollback to step {back_step}, '
+                        f'lr_scale={ctl.lr_scale}')
+            if ctl.step % args.print_freq == 0:
+                log_accum['steps_per_s'] = args.print_freq / max(
+                    time.time() - t0, 1e-9)
+                t0 = time.time()
+                for k in tacc:
+                    log_accum[k + '_ms'] = 1e3 * tacc[k] / args.print_freq
+                    tacc[k] = 0.0
+                say(json.dumps({'step': ctl.step, **{
+                    k: round(v, 5) for k, v in log_accum.items()}}))
+                mlog.append(ctl.step, **log_accum)
+                if tb is not None:
+                    tb.log(ctl.step, **log_accum)
+                if run.main:
+                    mlog.save(log_path)
+            if val_ds and ctl.step % args.val_freq == 0 and run.main:
+                validate(ctl.step)
+            run.save(ckpts, ctl.step, state, controller_state=ctl_snapshot())
+    finally:
+        # the caller's handler is back on every way out: the early
+        # returns, an exception, the end of the loop
+        stop_requested.restore()
     apply_pending()
     run.save(ckpts, ctl.step, state, force=True,
              controller_state=ctl_snapshot())

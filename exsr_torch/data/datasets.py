@@ -216,6 +216,15 @@ class JPEGDataset:
                 'path': self.paths[idx]}
 
 
+class _Failed:
+    """An exception raised while collating a batch, in the batch's place:
+    the consumer re-raises it (a worker thread's own exception would end
+    the thread and leave the consumer waiting for the batch)."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
 class DataLoader:
     """Threaded, seeded, prefetching batch iterator of NHWC numpy batches.
 
@@ -223,7 +232,9 @@ class DataLoader:
     ``np.random.default_rng((seed, epoch, batch))``, so the batches do not
     depend on the threads' timing.  With ``shuffle`` the order is permuted
     per epoch (seed ``seed + epoch``); ``drop_last`` drops the last partial
-    batch and refuses a dataset smaller than one batch.
+    batch and refuses a dataset smaller than one batch.  An exception
+    raised while collating is raised again in the consumer, at the batch
+    it belonged to.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
@@ -278,7 +289,10 @@ class DataLoader:
                     b = work.get_nowait()
                 except queue.Empty:
                     return
-                batch = collate(b)
+                try:
+                    batch = collate(b)
+                except BaseException as e:  # handed to the consumer
+                    batch = _Failed(e)
                 with cv:
                     done[b] = batch
                     cv.notify_all()
@@ -290,6 +304,8 @@ class DataLoader:
                 while b not in done:
                     cv.wait()
                 batch = done.pop(b)
+            if isinstance(batch, _Failed):
+                raise batch.error
             yield batch
 
     def stream(self, start_epoch: int = 0) -> Iterator[dict]:
@@ -301,11 +317,17 @@ class DataLoader:
 
         def produce():
             e = start_epoch
-            while True:
-                for batch in self.epoch(e):
-                    out.put(batch)
-                e += 1
+            try:
+                while True:
+                    for batch in self.epoch(e):
+                        out.put(batch)
+                    e += 1
+            except BaseException as err:  # handed to the consumer
+                out.put(_Failed(err))
 
         threading.Thread(target=produce, daemon=True).start()
         while True:
-            yield out.get()
+            batch = out.get()
+            if isinstance(batch, _Failed):
+                raise batch.error
+            yield batch

@@ -64,6 +64,17 @@ def lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
     w.copy_((x * std).to(w.dtype))
 
 
+def combine_moments(means: torch.Tensor, m2: torch.Tensor, n: int):
+    """``(mean, biased variance)`` of the union of equal parts of ``n``
+    values each, from each part's mean and sum of squared deviations
+    (stacked on dim 0): Chan et al.'s exact pairwise update, which keeps
+    the variance where the mean is large against the spread (sums of
+    squares of the raw values would lose it to cancellation in fp32)."""
+    mean = means.mean(dim=0)
+    var = (m2 + n * (means - mean) ** 2).sum(dim=0) / (n * means.shape[0])
+    return mean, var
+
+
 class BatchNorm(nn.Module):
     """Batch norm over NCHW that normalizes by the batch's statistics (or,
     without ``batch_stats``, by the running ones) and updates the running
@@ -71,12 +82,14 @@ class BatchNorm(nn.Module):
     and take the rest from the batch's mean and biased variance.
 
     ``dp`` (set by :func:`exsr_torch.parallel.dist.sync_batch_norm`) makes
-    the batch the global one of a data-parallel run: each rank's
+    the batch the union of the batches of ``dp``'s ranks: each rank's
     per-channel mean and sum of squared deviations (two-pass, as one
     process computes them) are gathered, gradients included, and combined
-    exactly (Chan et al.'s pairwise update): sums of squares of the raw
-    values would lose the variance to cancellation in fp32 where the mean
-    is large against the spread."""
+    exactly (:func:`combine_moments`).  The ranks must hold equal counts.
+
+    ``rows`` (a slice of H) takes the statistics from those rows only and
+    normalizes all rows by them: a height shard extended by a halo counts
+    its own rows, which its neighbours do not."""
 
     def __init__(self, features: int, momentum: float = BN_MOMENTUM,
                  eps: float = BN_EPS):
@@ -95,35 +108,38 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(self.momentum).add_(
                 (1 - self.momentum) * var)
 
-    def _global(self, x: torch.Tensor, update_stats: bool) -> torch.Tensor:
-        c = x.shape[1]
-        n = x.numel() // c              # equal on every rank
-        var_r, mean_r = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-        parts = self.dp.gather(torch.cat([mean_r, n * var_r])[None], 0)
-        means, m2 = parts[:, :c], parts[:, c:]
-        mean = means.mean(dim=0)
-        var = (m2 + n * (means - mean) ** 2).sum(dim=0) / (n * len(parts))
+    def _stats(self, own: torch.Tensor):
+        """The batch's mean and biased variance, from the rank's ``own``
+        values (over ``dp``'s ranks when set)."""
+        var, mean = torch.var_mean(own, dim=(0, 2, 3), correction=0)
+        if self.dp is None:
+            return mean, var
+        c = own.shape[1]
+        n = own.numel() // c              # equal on every rank
+        parts = self.dp.gather(torch.cat([mean, n * var])[None], 0)
+        return combine_moments(parts[:, :c], parts[:, c:], n)
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False,
+                batch_stats: bool = True, rows: slice | None = None):
+        if not batch_stats or (self.dp is None and rows is None):
+            if update_stats:
+                with torch.no_grad():
+                    var, mean = torch.var_mean(
+                        x if rows is None else x[:, :, rows],
+                        dim=(0, 2, 3), correction=0)
+                    self._update(mean, var)
+            if not batch_stats:
+                return F.batch_norm(x, self.running_mean, self.running_var,
+                                    self.weight, self.bias, training=False,
+                                    eps=self.eps)
+            return F.batch_norm(x, None, None, self.weight, self.bias,
+                                training=True, momentum=0.0, eps=self.eps)
+        mean, var = self._stats(x if rows is None else x[:, :, rows])
         if update_stats:
             self._update(mean.detach(), var.detach())
         scale = self.weight * torch.rsqrt(var + self.eps)
         return (x * scale[:, None, None]
                 + (self.bias - mean * scale)[:, None, None])
-
-    def forward(self, x: torch.Tensor, update_stats: bool = False,
-                batch_stats: bool = True):
-        if batch_stats and self.dp is not None:
-            return self._global(x, update_stats)
-        if update_stats:
-            with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, 2, 3),
-                                           correction=0)
-                self._update(mean, var)
-        if not batch_stats:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, training=False,
-                                eps=self.eps)
-        return F.batch_norm(x, None, None, self.weight, self.bias,
-                            training=True, momentum=0.0, eps=self.eps)
 
 
 class ConvBlock(nn.Module):

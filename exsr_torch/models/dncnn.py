@@ -121,26 +121,46 @@ class DnCNN(nn.Module):
         chroma generator's error with the low frequencies added).
         ``train`` normalises batch norm by the batch's statistics;
         ``update_stats`` (``train`` when None) moves the running ones."""
-        cfg = self.cfg
         if update_stats is None:
             update_stats = train
-        x = to_nchw(quantized_coeffs)
-        zc = to_nchw(z) if self.nz else None
-        for i in range(cfg.depth):
+        x = self.convs(to_nchw(quantized_coeffs),
+                       to_nchw(z) if self.nz else None,
+                       lambda i, x: self.norm(i, x, train, update_stats))
+        return self.head(x, quantized_coeffs)
+
+    def norm(self, i: int, x: torch.Tensor, train: bool,
+             update_stats: bool, rows: slice | None = None
+             ) -> torch.Tensor:
+        """The norm after middle conv ``i`` (NCHW); ``rows``: the rows
+        whose statistics count (the rest is normalised alike)."""
+        if self.cfg.norm == 'batch':
+            return self.bns[i - 1](x, update_stats=update_stats,
+                                   batch_stats=train, rows=rows)
+        if self.cfg.norm == 'instance':
+            return _standardize(x, (2, 3))
+        return x
+
+    def convs(self, x: torch.Tensor, zc: torch.Tensor | None,
+              norm) -> torch.Tensor:
+        """The conv stack on NCHW ``x`` (Z ``zc`` NCHW or None), with
+        ``norm(i, x)`` after each middle conv; the last conv's output,
+        before the head."""
+        depth = self.cfg.depth
+        for i in range(depth):
             if self._takes_z(i):
                 x = torch.cat([zc, x], 1)
             x = getattr(self, f'conv{i}')(x)
-            if i == cfg.depth - 1:
+            if i == depth - 1:
                 break
-            if i == 0:
-                x = F.relu(x)
-                continue
-            if cfg.norm == 'batch':
-                x = self.bns[i - 1](x, update_stats=update_stats,
-                                   batch_stats=train)
-            elif cfg.norm == 'instance':
-                x = _standardize(x, (2, 3))
-            x = F.leaky_relu(x, 0.01)
+            x = F.relu(x) if i == 0 else F.leaky_relu(norm(i, x), 0.01)
+        return x
+
+    def head(self, x: torch.Tensor, quantized_coeffs: torch.Tensor
+             ) -> torch.Tensor:
+        """The output from the last conv's NCHW ``x``: the bin-bounded
+        correction of ``quantized_coeffs`` (NHWC), or the chroma error
+        with the quantised low frequencies added, block by block."""
+        cfg = self.cfg
         err = to_nhwc(torch.sigmoid(x)) - 0.5
         if not cfg.chroma_generator:
             return quantized_coeffs + err

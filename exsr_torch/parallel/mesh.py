@@ -67,6 +67,19 @@ class Mesh:
         return DataParallel(self.data_index, self.data, self.data_group,
                             self.device)
 
+    @property
+    def world_dp(self) -> DataParallel:
+        """The whole grid as one group, for statistics of modules that run
+        on the rank's rows: every rank holds different pixels."""
+        return DataParallel(self.rank, self.world, None, self.device)
+
+    @property
+    def spatial_dp(self) -> DataParallel:
+        """The rank's spatial group: the ranks that hold one sample's
+        rows."""
+        return DataParallel(self.spatial_index, self.spatial,
+                            self.spatial_group, self.device)
+
 
 def make_mesh(data: int | None = None, spatial: int = 1,
               device=None) -> Mesh:
@@ -202,26 +215,41 @@ class TrainGrid:
     (:meth:`part`): the gather's backward sums the group's gradients.
     Gradients and metrics are then summed over the world and divided by
     ``data`` (:meth:`reduce`), which is one process's step on the global
-    batch, the same on every rank."""
+    batch, the same on every rank.
 
-    def __init__(self, mesh: Mesh, margins_hr: int):
+    The JPEG trainers' form has no margins (``margins_hr=0``: every rank
+    keeps its whole shard) and an ``align``: the image rows of one codec
+    block (8 for the Y model, 16 for the chroma cells), which each shard's
+    height must be a multiple of."""
+
+    def __init__(self, mesh: Mesh, margins_hr: int = 0, align: int = 1):
         if mesh.spatial < 2:
             raise ValueError('TrainGrid is for spatial > 1; a data x 1 grid '
                              'is data parallelism (mesh.dp)')
         self.mesh, self.margins = mesh, int(margins_hr)
+        self.align = int(align)
         self.rules = ShardingRules(mesh)
 
-    def join(self, *modules: torch.nn.Module) -> None:
-        """Batch norms over the data group and rank 0's weights on every
-        rank."""
+    def join(self, *modules: torch.nn.Module, world: bool = False) -> None:
+        """Rank 0's weights on every rank, and batch norms over the data
+        group; with ``world`` over the whole grid, for modules that run on
+        the rank's rows (a critic on the gathered image sees the same
+        pixels on every rank of a spatial group)."""
+        dp = self.mesh.world_dp if world else self.mesh.dp
         for m in modules:
-            self.rules.replicate(sync_batch_norm(m, self.mesh.dp))
+            self.rules.replicate(sync_batch_norm(m, dp))
 
-    def check(self, lr: torch.Tensor) -> None:
-        """Raise unless the spatial ranks divide the LR height."""
-        if lr.shape[1] % self.mesh.spatial:
-            raise ValueError(f'{self.mesh.spatial} spatial ranks do not '
-                             f'divide the LR height {lr.shape[1]}')
+    def check(self, x: torch.Tensor) -> None:
+        """Raise unless the spatial ranks divide the height of ``x`` (the
+        LR image) into whole blocks of ``align`` rows."""
+        s, a, h = self.mesh.spatial, self.align, x.shape[1]
+        if a == 1 and h % s:
+            raise ValueError(f'{s} spatial ranks do not divide the LR '
+                             f'height {h}')
+        if h % (s * a):
+            raise ValueError(f'{s} spatial ranks cannot give each rank '
+                             f'whole blocks of {a} rows of the image height '
+                             f'{h}')
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
         """The rank's ``(data, height)`` slice of a global NHWC tensor."""

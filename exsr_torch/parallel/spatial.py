@@ -35,7 +35,13 @@ is cropped the same way.  W is never sharded.
   ``rdb`` kernel on each block's rows plus 5, inference only.
 * :func:`rrdbnet_module`: the canonical ``RRDBNet.forward`` that training
   differentiates, through the module's own parameters and cuDNN
-  autograd, with one 5-row exchange per residual-dense block.
+  autograd, with one 5-row exchange per residual-dense block; the Z-less
+  ``MSRResNet`` and ``SRResNet`` through :func:`msrresnet_module` and
+  :func:`srresnet_module` (one 2-row exchange per residual block, one row
+  for each other conv and for ``MSRResNet``'s bilinear skip).
+* :func:`dncnn_module`: the JPEG trainers' DnCNN on block-row shards, one
+  exchange of ``depth`` block rows a forward, its norms' statistics from
+  the rank's own rows combined over the grid.
 * :func:`cem_wrap`: ``exsr_torch.cem.cem.cem_wrap`` on shards; its
   result ``cem_apply(params, lr, z_hr, margins_lr, pre_pad, mesh,
   decompose=False)`` is the entry point.  A caller drives it as
@@ -52,6 +58,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from exsr_torch.device import full_fp32
+from exsr_torch.models.discriminators import combine_moments
+from exsr_torch.models.dncnn import NORM_EPS
 from exsr_torch.models.rrdb import RRDBNet
 from exsr_torch.models.rrdb_fast import (_conv, _rdb_grouped, _subpixel,
                                          pack_grouped_params)
@@ -307,16 +316,77 @@ def rrdbnet_fused(net, lr, z_hr, rows: Rows):
     return _rrdbnet(net, lr, z_hr, rows, trunk)
 
 
+def _res_blocks(net, x, rows: Rows):
+    """The residual blocks of ``MSRResNet`` / ``SRResNet`` (``conv2(relu(
+    conv1(x))) + x``) on shards: one 2-row exchange covers a block's two
+    convs."""
+    for i in range(net.nb):
+        c1 = _module(getattr(net, f'rb{i}_conv1'))
+        c2 = _module(getattr(net, f'rb{i}_conv2'))
+        ext, a, b = rows.exchange(x, 2)
+        x = crop(ext + c2(F.relu(c1(ext))), a, b)
+    return x
+
+
+def msrresnet_module(net, lr, rows: Rows):
+    """``MSRResNet.forward`` on LR shards (``rows``): the first conv and
+    each upconv (its pixel shuffle local) with a one-row exchange, the
+    residual blocks with one 2-row exchange each, the HR convs with a
+    one-row exchange each.  The half-pixel bilinear skip reads at most
+    one LR row beyond each HR row's own (at x3 and x4), so it takes a
+    one-row exchange of the input and clamps where the extended rows end:
+    at the global edges, as one process does, and elsewhere in rows that
+    are cropped."""
+    from exsr_torch.models.classifiers import pixel_shuffle_nhwc
+    f, sf, lr_rows = net.f, net.upscale, rows
+    x = F.leaky_relu(local(_module(net.conv_first), lr, rows, 1), 0.1)
+    x = _res_blocks(net, x, rows)
+    for i in range(net.n_up):
+        up = _module(getattr(net, f'upconv{i + 1}'))
+        x = F.leaky_relu(local(lambda t: pixel_shuffle_nhwc(up(t), f), x,
+                               rows, 1, f), 0.1)
+        rows = rows.scaled(f)
+    x = F.leaky_relu(local(_module(net.HRconv), x, rows, 1), 0.1)
+    x = local(_module(net.conv_last), x, rows, 1)
+    return x + local(lambda t: bilinear_resize(t, sf * t.shape[1],
+                                               sf * t.shape[2]),
+                     lr, lr_rows, 1, sf)
+
+
+def srresnet_module(net, lr, rows: Rows):
+    """``SRResNet.forward`` on LR shards (``rows``): each conv with a
+    one-row exchange, the residual blocks with one 2-row exchange each,
+    each nearest upsample local before its conv."""
+    f = net.f
+    fea = local(_module(net.fea_conv), lr, rows, 1)
+    x = fea + local(_module(net.lr_conv), _res_blocks(net, fea, rows), rows,
+                    1)
+    for i in range(net.n_up):
+        up = _module(getattr(net, f'upconv{i}'))
+        x = F.relu(local(lambda t: up(nearest_upsample(t, f)), x, rows, 1, f))
+        rows = rows.scaled(f)
+    x = F.relu(local(_module(net.hr_conv0), x, rows, 1))
+    return local(_module(net.hr_conv1), x, rows, 1)
+
+
 def rrdbnet_module(net, lr, z_hr, rows: Rows):
     """The canonical ``RRDBNet.forward`` on shards (``rows``: LR), through
     the module's own parameters and cuDNN autograd: each residual-dense
     block on its input extended by one 5-row exchange (Z's extended
     once), the block's output cropped.  The generator training
-    differentiates; the Z-less ``MSRResNet`` and ``SRResNet`` have no
-    sharded form and raise."""
+    differentiates.  The Z-less ``MSRResNet`` and ``SRResNet`` (``z_hr``
+    None) run :func:`msrresnet_module` and :func:`srresnet_module`; any
+    other class raises."""
+    from exsr_torch.models.classifiers import MSRResNet, SRResNet
+    plain = {MSRResNet: msrresnet_module, SRResNet: srresnet_module}
+    if type(net) in plain:
+        if z_hr is not None:
+            raise ValueError(f'{type(net).__name__} takes no Z')
+        return plain[type(net)](net, lr, rows)
     if not isinstance(net, RRDBNet):
         raise ValueError(f'{type(net).__name__} has no height-sharded '
-                         'forward: only RRDBNet trains on a spatial grid')
+                         'forward: RRDBNet, MSRResNet and SRResNet train '
+                         'on a spatial grid')
     if net.fused_trunk:
         raise ValueError('rrdbnet_module runs the module trunk; the fused '
                          'trunk is rrdbnet_fused (inference only)')
@@ -334,6 +404,56 @@ def rrdbnet_module(net, lr, z_hr, rows: Rows):
             t = mul_in_dtype(o, 0.2) + t
         return t
     return _rrdbnet(net, lr, z_hr, rows, trunk)
+
+
+# ------------------------------------------------------------------ DnCNN
+def _instance_norm(x, own: slice, mesh):
+    """``dncnn._standardize(x, (2, 3))`` of NCHW row shards: each image's
+    per-channel mean and variance from the rank's ``own`` rows, combined
+    exactly over the spatial group (one gather)."""
+    o = x[:, :, own]
+    c, n = o.shape[1], o.shape[2] * o.shape[3]    # n equal on every rank
+    var, mean = torch.var_mean(o, dim=(2, 3), correction=0)
+    if mesh.spatial > 1:
+        parts = mesh.spatial_dp.gather(torch.cat([mean, n * var], 1)[None],
+                                       0)
+        mean, var = combine_moments(parts[..., :c], parts[..., c:], n)
+    return ((x - mean[..., None, None])
+            / torch.sqrt(var[..., None, None] + NORM_EPS))
+
+
+def dncnn_module(net, coeffs, z, rows: Rows, train: bool = False,
+                 update_stats: bool | None = None):
+    """``DnCNN.forward(coeffs, z, train, update_stats)`` on block-row
+    shards (``rows``: the coefficients' heights, whole 8 x 8 blocks or
+    16 x 16 cells of the image).
+
+    One exchange of ``depth`` block rows (``depth * (k // 2)``) covers the
+    conv stack: each conv zero-pads where the extended rows end, which is
+    the global edge or a row that the next convs only spoil within the
+    halo.  Z (per pixel, as in the MAP loop, or constant) rides in the
+    same exchange.  The norms take their statistics from the rank's own
+    rows and normalise the halo alike: batch norm over the module's
+    ``dp`` (``TrainGrid.join(..., world=True)``: every rank of the grid),
+    instance norm per image over the spatial group.  The output head,
+    the chroma generator's low-frequency add included, is local to each
+    block.  Shards must be equal (the trainers' alignment gives that)."""
+    if update_stats is None:
+        update_stats = train
+    cfg, nz = net.cfg, net.nz
+    ext, a, b = rows.exchange(coeffs if not nz else
+                              torch.cat([z, coeffs], -1),
+                              cfg.depth * (cfg.kernel_size // 2))
+    own = slice(a, ext.shape[1] - b)
+    if cfg.norm == 'instance':
+        def norm(i, x):
+            return _instance_norm(x, own, rows.mesh)
+    else:
+        def norm(i, x):
+            return net.norm(i, x, train, update_stats, rows=own)
+    x = net.convs(to_nchw(ext[..., nz:]), to_nchw(ext[..., :nz]) if nz
+                  else None, norm)
+    return net.head(x[:, :, own], coeffs)
 
 
 # ------------------------------------------------------------ entry point
@@ -354,8 +474,12 @@ def cem_wrap(g_apply, cem_filters, upscale: int):
     margins_lr, pre_pad, mesh, decompose=False)`` on the rank's shards of
     ``lr`` (``[n, h, W, 3]``) and ``z_hr`` (``[n, sf h, sf W, Cz]``, or
     None), which returns the rank's ``[n, sf h, sf W, 3]`` shard of the
-    output (with ``decompose``, of the CEM's ``(low, high)`` pair)."""
+    output (with ``decompose``, of the CEM's ``(low, high)`` pair).  The
+    forward runs in full fp32 (TF32 off); a backward that the caller runs
+    later sees the caller's flags, as the trainers' steps run theirs
+    inside ``full_fp32()``."""
 
+    @full_fp32()
     def cem_apply(params, lr, z_hr, margins_lr: int, pre_pad: bool, mesh,
                   decompose: bool = False):
         sf = upscale

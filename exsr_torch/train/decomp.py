@@ -34,6 +34,17 @@ batch-normed critic's) and the L_struct ring see the global batch, the
 MAP loop's L1 is the local sum over the global count, and the gradients
 and metrics are averaged over ranks.
 
+A ``data x spatial`` grid (``mesh``, ``spatial > 1``) splits each image's
+height too, as ``exsr``'s ``ShardingRules`` shard ``'uncomp'`` on
+``(data, spatial)``: the rank keeps whole rows of 8 x 8 blocks
+(:class:`~exsr_torch.parallel.mesh.TrainGrid` with ``align=8``), the
+codec and the generator run on them
+(:func:`exsr_torch.parallel.spatial.dncnn_module`: one halo exchange a
+forward, batch norm over every rank of the grid), the pixel losses are
+shares of the global mean, and the critic, its penalty and L_struct run
+on the data row's images gathered whole, each whole loss taken
+``1 / spatial`` times.
+
 Every train-mode forward normalises batch norm by the batch.  The
 generator's running statistics move only in the static-Z forward of the G
 step, from the weights before its update; the D step's fakes, the MAP
@@ -55,6 +66,8 @@ from exsr_torch.losses.filter_loss import (FilterLossConfig, RatioStats,
                                            filter_loss, num_latent_channels)
 from exsr_torch.ops.structure_tensor import svd_to_latent_z
 from exsr_torch.parallel import dist as P
+from exsr_torch.parallel import spatial
+from exsr_torch.parallel.mesh import TrainGrid
 from exsr_torch.train.srragan import TrainState, adam_step, param_grads
 from exsr_torch.zopt.optimizer import (adam_init, adam_update,
                                        xavier_uniform_like)
@@ -136,6 +149,71 @@ def _without_cudnn():
         torch.backends.cudnn.enabled = saved
 
 
+def grid_of(dp, mesh, align: int):
+    """A trainer's ``(dp, grid)`` from its ``dp`` or ``mesh`` argument:
+    the data group's ranks (None in one process) and the
+    :class:`~exsr_torch.parallel.mesh.TrainGrid` of a grid with
+    ``spatial > 1`` (None otherwise), shards aligned to ``align`` image
+    rows."""
+    grid = None
+    if mesh is not None:
+        if dp is not None:
+            raise ValueError('pass dp or mesh, not both: a mesh holds its '
+                             'data group (mesh.dp)')
+        dp = mesh.dp
+        if mesh.spatial > 1:
+            grid = TrainGrid(mesh, 0, align)
+    return P.active(dp), grid
+
+
+def join(trainer, g: torch.nn.Module, *critics: torch.nn.Module) -> None:
+    """Rank 0's weights on every rank; the batch norms of the generator
+    over every rank of a grid (it runs on the rank's rows), the critics'
+    over the data group (they run on the gathered images)."""
+    if trainer.grid is None:
+        P.join(trainer.dp, g, *critics)
+    else:
+        trainer.grid.join(g, world=True)
+        trainer.grid.join(*critics)
+
+
+def shard_rows(trainer, x: torch.Tensor) -> torch.Tensor:
+    """The rank's slice of a global NHWC tensor: its samples, and on a
+    grid its rows."""
+    if trainer.grid is None:
+        return P.shard(trainer.dp, x)
+    return trainer.grid.rows(x)
+
+
+def gather_rows(trainer, x: torch.Tensor) -> torch.Tensor:
+    """The data row's whole images of the rank's rows ``x`` (``x`` itself
+    without a grid), differentiable."""
+    if trainer.grid is None:
+        return x
+    return trainer.grid.gather(x, trainer.grid.mesh.spatial * x.shape[1])
+
+
+def share(trainer, e: torch.Tensor) -> torch.Tensor:
+    """The mean of the elementwise ``e``; on a grid the rank's share of
+    the data row's mean (summed over the spatial group, the mean)."""
+    if trainer.grid is None:
+        return e.mean()
+    return trainer.grid.share(e, trainer.grid.mesh.spatial * e.shape[1])
+
+
+def part(trainer, loss: torch.Tensor) -> torch.Tensor:
+    """A loss computed on whole images; on a grid the rank's ``1 /
+    spatial`` of it."""
+    return loss if trainer.grid is None else trainer.grid.part(loss)
+
+
+def reduced(trainer, grads: list, metrics: dict):
+    """``(grads, metrics)`` of one process's step on the global batch."""
+    if trainer.grid is None:
+        return P.reduced(trainer.dp, grads, metrics)
+    return trainer.grid.reduce(grads, metrics)
+
+
 def adam_for(module: torch.nn.Module, lr: float, beta1: float
              ) -> torch.optim.Adam:
     """``optax.scale_by_adam(b1=beta1)`` then the learning rate."""
@@ -148,11 +226,16 @@ class DecompTrainer:
     :class:`~exsr_torch.models.dncnn.DnCNN`, ``d`` a
     :class:`~exsr_torch.models.dncnn.DnCNNDiscriminator` (or any module
     with ``forward(x, update_stats=...)``); batches hold device tensors
-    ``'uncomp'`` ``[B, H, W, 1]`` in [0, 255] and ``'qf'`` ``[B]``."""
+    ``'uncomp'`` ``[B, H, W, 1]`` in [0, 255] and ``'qf'`` ``[B]``.
+    ``dp`` is a data-parallel rank, ``mesh`` a rank of a ``data x
+    spatial`` grid (pass one or neither); every rank passes the global
+    batch and draws."""
 
-    def __init__(self, cfg: DecompConfig, dp=None):
+    ALIGN = 8   # image rows of one block row
+
+    def __init__(self, cfg: DecompConfig, dp=None, mesh=None):
         self.cfg = cfg
-        self.dp = P.active(dp)
+        self.dp, self.grid = grid_of(dp, mesh, self.ALIGN)
         self.codec = JPEGCodec()
         # an integer latent_channels gives plain control channels and no
         # L_struct loss
@@ -169,7 +252,7 @@ class DecompTrainer:
         cfg = self.cfg
         device = resolve_device(device)
         g, d = g.to(device), d.to(device)
-        P.join(self.dp, g, d)
+        join(self, g, d)
         return TrainState(
             g=g, d=d, g_opt=adam_for(g, cfg.lr_g, cfg.beta1),
             d_opt=adam_for(d, cfg.lr_d, cfg.beta1),
@@ -223,11 +306,29 @@ class DecompTrainer:
                           self.cfg.hinge_threshold)
 
     def _inputs(self, batch):
-        """``(uncomp, qf, comp)`` of the rank's slice of the batch."""
-        batch = {k: P.shard(self.dp, batch[k]) for k in ('uncomp', 'qf')}
-        qf = batch['qf'].float()
-        comp = self.codec.compress(batch['uncomp'], qf, quantize=True)
-        return batch['uncomp'], qf, comp
+        """``(uncomp, qf, comp)`` of the rank's slice of the batch (on a
+        grid its rows)."""
+        if self.grid is not None:
+            self.grid.check(batch['uncomp'])
+        uncomp = shard_rows(self, batch['uncomp'])
+        qf = P.shard(self.dp, batch['qf']).float()
+        return uncomp, qf, self.codec.compress(uncomp, qf, quantize=True)
+
+    def _forward(self, g, comp, z, update_stats: bool = False):
+        """:meth:`forward`; on a grid on the rank's block rows."""
+        if self.grid is None:
+            return self.forward(g, comp, z, update_stats)
+        return spatial.dncnn_module(
+            g, comp, z, spatial.Rows.equal(self.grid.mesh, comp.shape[1]),
+            True, update_stats)
+
+    def _whole_inputs(self, batch, qf, uncomp, comp):
+        """``(uncomp, comp)`` of the data row's whole images (the rank's
+        own on one process)."""
+        if self.grid is None:
+            return uncomp, comp
+        uncomp = P.shard(self.dp, batch['uncomp'])
+        return uncomp, self.codec.compress(uncomp, qf, quantize=True)
 
     # ----------------------------------------------------------- the draws
     def _u(self, state, b):
@@ -278,17 +379,24 @@ class DecompTrainer:
         (both / 255), the generator frozen; the detached ``tanh`` of the
         result."""
         theta, opt_state = theta0, adam_init(theta0)
-        target = uncomp / 255.0
         for _ in range(self.cfg.optimal_z_iters):
-            th = theta.detach().requires_grad_()
-            img = self.codec.extract(self.forward(g, comp, torch.tanh(th)),
-                                     qf)
-            err = (img / 255.0 - target).abs()
-            grad, = torch.autograd.grad(P.count_mean(self.dp, err), th)
+            grad = self._map_grad(g, comp, uncomp, qf, theta)
             upd, opt_state = adam_update(grad, opt_state,
                                          self.cfg.optimal_z_lr)
             theta = theta + upd
         return torch.tanh(theta).detach()
+
+    def _map_grad(self, g, comp, uncomp, qf, theta) -> torch.Tensor:
+        """The MAP objective's gradient at pre-tanh Z ``theta``: the L1
+        mean over the global batch (each rank's share, no collective of
+        its own; on a grid over the rank's block rows, the halos'
+        adjoints bringing the neighbours' terms)."""
+        th = theta.detach().requires_grad_()
+        img = self.codec.extract(self._forward(g, comp, torch.tanh(th)), qf)
+        err = (img / 255.0 - uncomp / 255.0).abs()
+        loss = P.count_mean(self.dp, err) if self.grid is None else \
+            share(self, err) / self.grid.mesh.data
+        return torch.autograd.grad(loss, th)[0]
 
     # --------------------------------------------------------------- D step
     def d_grads(self, state: TrainState, batch: dict, draws: dict,
@@ -297,18 +405,28 @@ class DecompTrainer:
         ``d.parameters()`` order) and metrics, from ``draws``."""
         cfg, g, d = self.cfg, state.g, state.d
         uncomp, qf, comp = self._inputs(batch)
-        b, hb, wb = comp.shape[:3]
-        z, _ = self.sample_z(P.shard(self.dp, draws['u']), hb, wb)
-        ref = self._d_input(self.codec.compress(uncomp, qf, quantize=False),
-                            comp, z, qf)
-        with torch.no_grad(), _without_cudnn():
-            fakes = [self._d_input(self.forward(g, comp, z), comp, z, qf)]
+        hb, wb = comp.shape[1:3]
+        u = P.shard(self.dp, draws['u'])
+        z, _ = self.sample_z(u, hb, wb)
+        # the critic's inputs are the data row's whole images
+        uncomp_w, comp_w = self._whole_inputs(batch, qf, uncomp, comp)
+        b, hb_w = comp_w.shape[:2]
+        z_w = z if self.grid is None else self.sample_z(u, hb_w, wb)[0]
+        ref = self._d_input(self.codec.compress(uncomp_w, qf,
+                                                quantize=False),
+                            comp_w, z_w, qf)
+
+        @torch.no_grad()
+        def fake(z_in, z_in_w):
+            with _without_cudnn():
+                coeffs = gather_rows(self, self._forward(g, comp, z_in))
+            return self._d_input(coeffs, comp_w, z_in_w, qf)
+        fakes = [fake(z, z_w)]
         if dual:
             z_opt = self._optimal_z(g, comp, uncomp, qf,
-                                    P.shard(self.dp, draws['theta0']))
-            with torch.no_grad(), _without_cudnn():
-                fakes.insert(0, self._d_input(self.forward(g, comp, z_opt),
-                                              comp, z_opt, qf))
+                                    shard_rows(self, draws['theta0']))
+            fakes.insert(0, fake(z_opt, gather_rows(self, z_opt)
+                                 if cfg.inject_z_to_d else None))
         params = list(d.parameters())
         state.d_opt.zero_grad(set_to_none=True)
         # the running statistics chain real -> fake_0 -> fake_1
@@ -335,13 +453,14 @@ class DecompTrainer:
                          .mean(dim=1))
             metrics.update({f'l_d_real_{i}': l_real.detach(),
                             f'l_d_fake_{i}': l_fake.detach()})
-        total = total / len(fakes)
+        total = part(self, total / len(fakes))
         total.backward(inputs=params)
         diffs = torch.stack(diffs)
         metrics['D_logits_diff'] = diffs.mean()
         metrics['Correctly_distinguished'] = (diffs > 0).float().mean()
+        metrics = {k: part(self, v) for k, v in metrics.items()}
         metrics['l_d_total'] = total.detach()
-        return P.reduced(self.dp, param_grads(params), metrics)
+        return reduced(self, param_grads(params), metrics)
 
     def d_step(self, state: TrainState, batch: dict, dual: bool = True,
                draws: dict | None = None):
@@ -363,42 +482,53 @@ class DecompTrainer:
         cfg, g, d = self.cfg, state.g, state.d
         uncomp, qf, comp = self._inputs(batch)
         hb, wb = comp.shape[1:3]
-        z_static, svd = self.sample_z(P.shard(self.dp, draws['u']), hb, wb)
+        u = P.shard(self.dp, draws['u'])
+        z_static, svd = self.sample_z(u, hb, wb)
         z_opt = (self._optimal_z(g, comp, uncomp, qf,
-                                 P.shard(self.dp, draws['theta0']))
+                                 shard_rows(self, draws['theta0']))
                  if dual else None)
+        # L_struct and the critic see the data row's whole images
+        uncomp_w, comp_w = self._whole_inputs(batch, qf, uncomp, comp)
+        z_static_w = z_static if self.grid is None else \
+            self.sample_z(u, comp_w.shape[1], wb)[0]
         n_steps = 2 if dual else 1
         params = list(g.parameters())
         state.g_opt.zero_grad(set_to_none=True)
         total, metrics, ratio_stats = 0.0, {}, state.ratio_stats
         zs = ([(z_opt, True)] if dual else []) + [(z_static, False)]
         for z, is_opt in zs:
-            coeffs = self.forward(g, comp, z, update_stats=not is_opt)
+            coeffs = self._forward(g, comp, z, update_stats=not is_opt)
             img = self.codec.extract(coeffs, qf)
             if cfg.range_weight:
-                l_range = L.range_loss(img / 255.0)
+                l_range = share(self, L.range_excess(img / 255.0))
                 total = total + cfg.range_weight * l_range / n_steps
                 metrics['l_g_range'] = l_range.detach()
             if is_opt and cfg.optimal_z_weight:
-                l_map = (img / 255.0 - uncomp / 255.0).abs().mean()
+                l_map = share(self, (img / 255.0 - uncomp / 255.0).abs())
                 total = total + cfg.optimal_z_weight * l_map
                 metrics['l_g_optimalZ'] = l_map.detach()
             if (not is_opt) and self.latent_loss_active:
-                z3 = z_to_3_channels(z) if cfg.svd_mode else z
+                z3 = z_to_3_channels(z_static_w) if cfg.svd_mode \
+                    else z_static_w
                 l_lat, ratio_stats = filter_loss(
-                    self.filter_cfg, state.ratio_stats, img, uncomp, z3, svd,
-                    dp=self.dp)
-                total = total + cfg.latent_weight * l_lat.mean()
-                metrics['l_g_latent'] = l_lat.detach().mean()
+                    self.filter_cfg, state.ratio_stats, gather_rows(self, img),
+                    uncomp_w, z3, svd, dp=self.dp)
+                l_lat = part(self, l_lat.mean())
+                total = total + cfg.latent_weight * l_lat
+                metrics['l_g_latent'] = l_lat.detach()
             if use_gan:
-                pred_fake = d(self._d_input(coeffs, comp, z, qf),
+                z_w = None
+                if cfg.inject_z_to_d:
+                    z_w = gather_rows(self, z) if is_opt else z_static_w
+                pred_fake = d(self._d_input(gather_rows(self, coeffs),
+                                            comp_w, z_w, qf),
                               update_stats=False)
-                l_gan = self._gan(pred_fake, True)
+                l_gan = part(self, self._gan(pred_fake, True))
                 total = total + (cfg.gan_weight or 0.0) * l_gan / n_steps
                 metrics['l_g_gan'] = l_gan.detach()
         total.backward(inputs=params)
         metrics['l_g_total'] = total.detach()
-        return (*P.reduced(self.dp, param_grads(params), metrics),
+        return (*reduced(self, param_grads(params), metrics),
                 ratio_stats.detached())
 
     def g_step(self, state: TrainState, batch: dict, dual: bool = True,

@@ -19,7 +19,13 @@ channels, conditioned on a Y channel:
 Data parallelism (``dp``) as the Y trainer's: every rank draws the
 global step's numbers and keeps its slice of them and of the batch; the
 chroma generator's batch norm sees the global batch; the gradients and
-metrics are averaged over ranks.
+metrics are averaged over ranks.  On a ``data x spatial`` grid (``mesh``)
+the rank keeps whole rows of 16 x 16 cells: the frozen Y generator runs
+on their 8 x 8 block rows (eval mode, so its only collective is its halo
+exchange), the chroma generator on the cell rows (batch norm over every
+rank of the grid), ``is_fake`` is sliced on ``data``, the pixel losses
+are shares of the global mean and the critic runs on the data row's
+inputs gathered whole, its losses taken ``1 / spatial`` times.
 
 Both steps run in full fp32 (TF32 off).  The chroma generator runs in
 train mode (batch statistics); its running statistics move only in the G
@@ -34,6 +40,8 @@ from exsr_torch.jpeg.codec import JPEGCodec
 from exsr_torch.losses import losses as L
 from exsr_torch.losses.filter_loss import RatioStats
 from exsr_torch.parallel import dist as P
+from exsr_torch.parallel import spatial
+from exsr_torch.train import decomp as Y
 from exsr_torch.train.decomp import DecompConfig, adam_for
 from exsr_torch.train.srragan import TrainState, adam_step, param_grads
 
@@ -51,13 +59,17 @@ class ChromaDecompTrainer:
     (with ``y_latent_channels`` latent channels, fed zeros), the state's
     ``g`` the chroma generator, its ``d`` the critic.  Batches hold device
     tensors ``'uncomp'`` ``[B, H, W, 3]`` YCbCr in [0, 255] and ``'qf'``
-    ``[B]``."""
+    ``[B]``; ``dp`` or ``mesh`` as :class:`~exsr_torch.train.decomp.
+    DecompTrainer`'s."""
 
-    def __init__(self, cfg: DecompConfig, gy: torch.nn.Module, dp=None):
+    ALIGN = 16  # image rows of one cell row
+
+    def __init__(self, cfg: DecompConfig, gy: torch.nn.Module, dp=None,
+                 mesh=None):
         if not cfg.chroma_mode:
             raise ValueError('ChromaDecompTrainer needs chroma_mode=True')
         self.cfg = cfg
-        self.dp = P.active(dp)
+        self.dp, self.grid = Y.grid_of(dp, mesh, self.ALIGN)
         self.gy = gy.requires_grad_(False)
         self.codec_y = JPEGCodec()
         self.codec = JPEGCodec(chroma_mode=True, block_size=16)
@@ -70,7 +82,12 @@ class ChromaDecompTrainer:
         device = resolve_device(device)
         self.gy.to(device)
         gc, d = gc.to(device), d.to(device)
-        P.join(self.dp, self.gy, gc, d)
+        if self.grid is None:
+            P.join(self.dp, self.gy, gc, d)
+        else:
+            # the frozen Y generator runs in eval mode: weights only
+            self.grid.rules.replicate(self.gy)
+            Y.join(self, gc, d)
         return TrainState(
             g=gc, d=d, g_opt=adam_for(gc, cfg.lr_g, cfg.beta1),
             d_opt=adam_for(d, cfg.lr_d, cfg.beta1),
@@ -85,7 +102,13 @@ class ChromaDecompTrainer:
         comp_y = self.codec_y.compress(y_img, qf, quantize=True)
         nz = self.gy.nz
         z = comp_y.new_zeros(comp_y.shape[:3] + (nz,)) if nz else None
-        fake = self.codec_y.extract(self.gy(comp_y, z), qf)
+        if self.grid is None:
+            coeffs = self.gy(comp_y, z)
+        else:
+            coeffs = spatial.dncnn_module(
+                self.gy, comp_y, z,
+                spatial.Rows.equal(self.grid.mesh, comp_y.shape[1]))
+        fake = self.codec_y.extract(coeffs, qf)
         if is_fake is None:
             return fake
         return torch.where(is_fake[:, None, None, None], fake, y_img)
@@ -104,6 +127,15 @@ class ChromaDecompTrainer:
     def forward(gc, packed, update_stats: bool = False) -> torch.Tensor:
         """The chroma generator in train mode (batch statistics)."""
         return gc(packed, None, train=True, update_stats=update_stats)
+
+    def _forward(self, gc, packed, update_stats: bool = False):
+        """:meth:`forward`; on a grid on the rank's cell rows."""
+        if self.grid is None:
+            return self.forward(gc, packed, update_stats)
+        return spatial.dncnn_module(
+            gc, packed, None,
+            spatial.Rows.equal(self.grid.mesh, packed.shape[1]), True,
+            update_stats)
 
     @torch.no_grad()
     def decode(self, gc, packed, qf) -> torch.Tensor:
@@ -127,9 +159,13 @@ class ChromaDecompTrainer:
 
     def local(self, batch: dict, draws: dict):
         """``(batch, draws)``: the rank's slices of the global step's batch
-        and draws (the whole of them in one process)."""
-        return tuple({k: P.shard(self.dp, v) for k, v in t.items()}
-                     for t in (batch, draws))
+        and draws (the whole of them in one process; on a grid the images'
+        rows)."""
+        if self.grid is not None:
+            self.grid.check(batch['uncomp'])
+        return ({k: Y.shard_rows(self, v) if v.dim() == 4
+                 else P.shard(self.dp, v) for k, v in batch.items()},
+                {k: P.shard(self.dp, v) for k, v in draws.items()})
 
     def prepare(self, batch: dict, draws: dict) -> dict:
         """The step's inputs: the packed generator input, the reference
@@ -147,9 +183,11 @@ class ChromaDecompTrainer:
         cfg, d = self.cfg, state.d
         packed = inputs['packed']
         with torch.no_grad():
-            fake = self.forward(state.g, packed)
-        real_in = torch.cat([packed[..., :256], inputs['ref_chroma']], -1)
-        fake_in = torch.cat([packed[..., :256], fake], -1)
+            fake = self._forward(state.g, packed)
+            real_in = Y.gather_rows(self, torch.cat(
+                [packed[..., :256], inputs['ref_chroma']], -1))
+            fake_in = Y.gather_rows(self, torch.cat(
+                [packed[..., :256], fake], -1))
         params = list(d.parameters())
         state.d_opt.zero_grad(set_to_none=True)
         pred_real = d(real_in, update_stats=True)
@@ -160,8 +198,9 @@ class ChromaDecompTrainer:
             loss = loss + cfg.gp_weight * L.gradient_penalty(
                 lambda x: d(x, update_stats=False), real_in, fake_in,
                 draws['alpha'])
+        loss = Y.part(self, loss)
         loss.backward(inputs=params)
-        return P.reduced(self.dp, param_grads(params),
+        return Y.reduced(self, param_grads(params),
                          {'l_d_total': loss.detach()})
 
     def g_grads(self, state: TrainState, inputs: dict, use_gan: bool):
@@ -171,25 +210,25 @@ class ChromaDecompTrainer:
         packed, qf = inputs['packed'], inputs['qf']
         params = list(state.g.parameters())
         state.g_opt.zero_grad(set_to_none=True)
-        coeffs = self.forward(state.g, packed, update_stats=True)
+        coeffs = self._forward(state.g, packed, update_stats=True)
         img = self.codec.extract_ycbcr(coeffs, qf)
         m = {}
-        l_pix = (img / 255.0 - inputs['target'] / 255.0).abs().mean()
+        l_pix = Y.share(self, (img / 255.0 - inputs['target'] / 255.0).abs())
         m['l_g_pix'] = l_pix.detach()
         loss = (cfg.optimal_z_weight or 1.0) * l_pix
         if cfg.range_weight:
-            l_range = L.range_loss(img / 255.0)
+            l_range = Y.share(self, L.range_excess(img / 255.0))
             m['l_g_range'] = l_range.detach()
             loss = loss + cfg.range_weight * l_range
         if use_gan:
-            pred = state.d(torch.cat([packed[..., :256], coeffs], -1),
-                           update_stats=False)
-            l_gan = L.gan_loss(cfg.gan_type, pred, True)
+            pred = state.d(Y.gather_rows(self, torch.cat(
+                [packed[..., :256], coeffs], -1)), update_stats=False)
+            l_gan = Y.part(self, L.gan_loss(cfg.gan_type, pred, True))
             m['l_g_gan'] = l_gan.detach()
             loss = loss + (cfg.gan_weight or 0.0) * l_gan
         loss.backward(inputs=params)
         m['l_g_total'] = loss.detach()
-        return P.reduced(self.dp, param_grads(params), m)
+        return Y.reduced(self, param_grads(params), m)
 
     def step(self, state: TrainState, batch: dict, use_gan: bool = True,
              draws: dict | None = None):

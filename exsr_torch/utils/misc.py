@@ -266,6 +266,8 @@ def install_sigint_stop():
 
     flag = {'stop': False}
     prev = signal.getsignal(signal.SIGINT)
+    if prev is None:  # installed outside Python: put Python's default back
+        prev = signal.default_int_handler
 
     def _handler(signum, frame):
         flag['stop'] = True

@@ -2,6 +2,7 @@
 on gloo ranks on the CPU, against ``exsr``'s sharded computation on the
 8-device virtual mesh: the rank grid and its shards, the height-sharded
 CEM ``enforce``, the CEM-wrapped generator forward and its gradients, the
+Z-less ``MSRResNet`` and ``SRResNet`` forwards against one process, the
 halo exchange's adjoint (halos wider than a shard included), and the
 errors.
 
@@ -174,6 +175,9 @@ def _rank(init, rank, world, tmp, grid, d):
                     net3, x3, z3, MARGINS, True, mesh)),
                 cem_wrap(g1, filt3, 3)(net3, *full3, MARGINS, True))
 
+        if data == 1:
+            res['plain'] = _plain_generators(mesh, rules, lr)
+
     if data == 1:
         # the adjoint: <halo(x), v> == <x, halo^T(v)>, summed over ranks,
         # on unequal shards whose halos reach past their neighbours
@@ -189,6 +193,28 @@ def _rank(init, rank, world, tmp, grid, d):
         res['halo'] = {'x': x.detach(), 'y': y.detach(), 'dots': dots}
     torch.save(res, f'{tmp}/r{rank}.pt')
     dist.destroy_process_group()
+
+
+def _plain_generators(mesh, rules, lr) -> dict:
+    """The Z-less ``PLAIN_ARCHS`` generators, CEM-wrapped with pre-padding
+    at x4 and x3, sharded and in one process (at the ranks' thread
+    count): ``{(arch, sf): (sharded, one)}``."""
+    from exsr_torch.cem.cem import CEM, CEMConf, cem_wrap
+    from exsr_torch.models.classifiers import MSRResNet, SRResNet
+    from exsr_torch.parallel import spatial
+    out = {}
+    for sf in (4, 3):
+        filt = CEM.create(CEMConf(scale_factor=sf)).device_filters(
+            3, device='cpu')
+        for cls in (MSRResNet, SRResNet):
+            net = cls(nf=NF, nb=2, upscale=sf, seed=3)
+            out[cls.__name__, sf] = (
+                rules.gather(spatial.cem_wrap(spatial.rrdbnet_module, filt,
+                                              sf)(net, lr, None, MARGINS,
+                                                  True, mesh)),
+                cem_wrap(lambda p, a, b: p(a), filt, sf)(
+                    net, rules.gather(lr), None, MARGINS, pre_pad=True))
+    return out
 
 
 def _leaves(packed) -> dict:
@@ -429,6 +455,28 @@ def test_x3_generators_match_one_process(runs):
             got, one = res[f'x3_{fused}']
             assert tuple(got.shape) == (BATCH, 48, 36, 3)
             assert _gap(got, one) <= FP32_STEPS * float(one.abs().max())
+
+
+@pytest.mark.parametrize('arch', ['MSRResNet', 'SRResNet'])
+@pytest.mark.parametrize('sf', [4, 3])
+def test_plain_generators_match_one_process(runs, arch, sf):
+    """``MSRResNet`` (pixel shuffle, the bilinear skip on a one-row halo)
+    and ``SRResNet`` (nearest upsampling) on 1 x 4 shards of 4 LR rows,
+    pre-padded by the margins, against one process.
+
+    At x3 the resize's scale 1/3 is no float: each HR row's source
+    position is off by up to its index times the scale's rounding, in one
+    process from the image's first row, on a shard from the shard's.  So
+    ``MSRResNet``'s skip may differ by that much of the largest step
+    between LR values (inputs in [0, 1]: at most 1) on top of the
+    rounding steps."""
+    got, one = runs['ranks']['1x4'][0]['plain'][arch, sf]
+    assert tuple(got.shape) == (BATCH, sf * G_LR, sf * G_LR, 3)
+    position = 0.0
+    if arch == 'MSRResNet':
+        position = sf * (G_LR + 2 * MARGINS) * abs(
+            float(np.float32(1 / sf)) - 1 / sf)
+    assert _gap(got, one) <= FP32_STEPS * float(one.abs().max()) + position
 
 
 def test_halo_exchange_and_adjoint_with_wide_halos(runs):

@@ -223,11 +223,12 @@ def test_init_from_env_without_torchrun_is_one_process(monkeypatch):
 
 
 # ------------------------------------------- trainer steps on every rank
-def build_trainer(job: dict, dp=None):
+def build_trainer(job: dict, dp=None, mesh=None):
     """The port's trainer and a fresh state on the CPU from a job's
     weights and options (``kind`` ``'sr'``: the CEM-wrapped RRDBNet and
     the VGG critic; ``'jpeg'``: DnCNN and its critic; ``'chroma'``: the
-    frozen Y DnCNN, the chroma DnCNN and its critic)."""
+    frozen Y DnCNN, the chroma DnCNN and its critic).  ``mesh`` (JPEG
+    kinds): a rank of a ``data x spatial`` grid in place of ``dp``."""
     if job['kind'] == 'sr':
         from exsr_torch.cem.cem import CEM, CEMConf, cem_wrap
         from exsr_torch.models.discriminators import DiscriminatorVGG128
@@ -249,9 +250,10 @@ def build_trainer(job: dict, dp=None):
         if job['kind'] == 'chroma':
             gy = DnCNN(DnCNNConfig(**job['gy_kw']))
             gy.load_state_dict(job['gy_state'])
-            tr = ChromaDecompTrainer(DecompConfig(**job['cfg']), gy, dp=dp)
+            tr = ChromaDecompTrainer(DecompConfig(**job['cfg']), gy, dp=dp,
+                                     mesh=mesh)
         else:
-            tr = DecompTrainer(DecompConfig(**job['cfg']), dp=dp)
+            tr = DecompTrainer(DecompConfig(**job['cfg']), dp=dp, mesh=mesh)
         g = DnCNN(DnCNNConfig(**job['g_kw']))
         d = DnCNNDiscriminator(**job['d_kw'])
     g.load_state_dict(job['g_state'])
@@ -259,10 +261,13 @@ def build_trainer(job: dict, dp=None):
     return tr, tr.init_state(g, d, 0, 'cpu')
 
 
-def run_job(job: dict, dp=None) -> dict:
+def run_job(job: dict, dp=None, mesh=None, plant=None) -> dict:
     """One D or G step's gradients (by name), metrics (floats), and the
-    state it moves: the modules' running statistics and the ring."""
-    tr, state = build_trainer(job, dp)
+    state it moves: the modules' running statistics and the ring.
+    ``plant(trainer, state)`` runs before the step (a planted fault)."""
+    tr, state = build_trainer(job, dp, mesh)
+    if plant is not None:
+        plant(tr, state)
     batch, draws, dual = job['batch'], job['draws'], job['dual']
     d_step, ring = job['step'] == 'd', None
     if job['kind'] == 'chroma':

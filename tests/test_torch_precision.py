@@ -319,3 +319,106 @@ def test_web_jpeg_handlers(tf32_on):
               backward=True)
     _recorded(lambda: api.dispatch('digit', {'digit': 3, 'max_iters': 1}),
               backward=True)
+
+
+# ------------------------------------------- the entry points on a grid
+# name: whether it runs a backward
+SHARDED = {'decomp_d_dual': True, 'decomp_g_dual': True,
+           'chroma_step': True, 'sr_g_step_msrresnet': True,
+           'forward_msrresnet': False, 'forward_srresnet': False}
+
+
+def _sharded_calls(mesh) -> dict:
+    """Each entry point on a ``data x spatial`` grid: the sharded JPEG Y
+    and chroma steps, an SR G step of ``MSRResNet`` and the sharded
+    plain generators' forward (every rank passes the global batch)."""
+    from exsr_torch.cem.cem import CEM, CEMConf
+    from exsr_torch.models.classifiers import MSRResNet, SRResNet
+    from exsr_torch.models.discriminators import DiscriminatorVGG128
+    from exsr_torch.models.dncnn import (DnCNN, DnCNNConfig,
+                                         DnCNNDiscriminator)
+    from exsr_torch.parallel import spatial
+    from exsr_torch.train.decomp import DecompConfig, DecompTrainer
+    from exsr_torch.train.decomp_chroma import ChromaDecompTrainer
+    from exsr_torch.train.srragan import SRRaGANTrainer, TrainConfig
+    y = DecompTrainer(DecompConfig(optimal_z_iters=2), mesh=mesh)
+    y_state = y.init_state(
+        DnCNN(DnCNNConfig(n_channels=8, depth=3, num_latent_channels=64)),
+        DnCNNDiscriminator(n_channels=8, depth=3, expected_input_size=4),
+        0, 'cpu')
+    c = ChromaDecompTrainer(
+        DecompConfig(latent_channels=0, chroma_mode=True),
+        DnCNN(DnCNNConfig(n_channels=8, depth=3, num_latent_channels=8)),
+        mesh=mesh)
+    c_state = c.init_state(
+        DnCNN(DnCNNConfig(n_channels=8, depth=3, in_nc=384, out_nc=128,
+                          chroma_generator=True, block_size=8,
+                          num_latent_channels=0)),
+        DnCNNDiscriminator(n_channels=8, depth=3, expected_input_size=2,
+                           in_nc=384), 0, 'cpu')
+    cem = CEM.create(CEMConf(scale_factor=4))
+    filt = cem.device_filters(3, device='cpu')
+    sharded = spatial.cem_wrap(spatial.rrdbnet_module, filt, 4)
+    m = cem.invalidity_margins_hr
+    sr = SRRaGANTrainer(TrainConfig(optimal_z_iters=2),
+                        lambda g, x, z: sharded(g, x, None, 0, False, mesh),
+                        m, mesh=mesh)
+    sr_state = sr.init_state(MSRResNet(nf=8, nb=1),
+                             DiscriminatorVGG128(8, 4, 1, 112 - 2 * m),
+                             0, 'cpu')
+    rng = np.random.default_rng(6)
+    hr = torch.from_numpy(rng.uniform(size=(2, 112, 112, 3))
+                          .astype(np.float32))
+    sr_batch = {'hr': hr, 'lr': hr[:, ::4, ::4].contiguous()}
+    lr = sr_batch['lr'][:, 14 * mesh.spatial_index:
+                        14 * (mesh.spatial_index + 1)]
+    return {
+        'decomp_d_dual': lambda: y.d_step(y_state, _jpeg_batch(1, 4)),
+        'decomp_g_dual': lambda: y.g_step(y_state, _jpeg_batch(1, 4)),
+        'chroma_step': lambda: c.step(c_state, _jpeg_batch(3, 5)),
+        'sr_g_step_msrresnet': lambda: sr.g_step(sr_state, sr_batch,
+                                                 dual=False),
+        'forward_msrresnet': lambda: sharded(MSRResNet(nf=8, nb=1), lr,
+                                             None, 2, True, mesh),
+        'forward_srresnet': lambda: sharded(SRResNet(nf=8, nb=1), lr, None,
+                                            2, True, mesh)}
+
+
+def _rank_sharded(init, rank, world, tmp):
+    import torch.distributed as dist
+    from exsr_torch.parallel.mesh import make_mesh
+    torch.set_num_threads(1)
+    dist.init_process_group('gloo', init_method=init, rank=rank,
+                            world_size=world)
+    calls = _sharded_calls(make_mesh(1, world, device='cpu'))
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    out = {}
+    for name, call in calls.items():
+        rec = FlagRecorder()
+        with rec:
+            call()
+        out[name] = (rec.seen, _flags())
+    torch.save(out, f'{tmp}/r{rank}.pt')
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope='module')
+def sharded_flags(tmp_path_factory):
+    """Both ranks' flags at every conv of each entry point on a 1 x 2
+    grid of gloo ranks, TF32 on around each call."""
+    from test_torch_parallel import run_ranks
+    d = tmp_path_factory.mktemp('precision_grid')
+    run_ranks('test_torch_precision', '_rank_sharded', d, 2)
+    return [torch.load(d / f'r{r}.pt') for r in range(2)]
+
+
+@pytest.mark.parametrize('name', list(SHARDED))
+def test_sharded_entry_points(sharded_flags, name):
+    for res in sharded_flags:
+        seen, after = res[name]
+        assert after == (True, True), 'flags not restored'
+        assert 'convolution' in seen
+        if SHARDED[name]:
+            assert 'convolution_backward' in seen
+        assert set().union(*seen.values()) == {(False, False)}, seen

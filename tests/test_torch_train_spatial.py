@@ -26,6 +26,10 @@ largest element away from its own one-device step, which the port's
 one process and its 2 x 1 and 1 x 2 meshes agree with within 5e-6.  The
 port's grid step of that case is held to ``exsr``'s one-device step.
 
+The Z-less ``MSRResNet`` (nf 16, nb 2, CEM-wrapped, Z not passed) takes
+a non-dual G step on the 2 x 2 grid, held to the port's one process and
+to ``exsr``'s one-device step.
+
 One launch of four ranks per grid runs every case, beside ``exsr``'s side
 in this process; the ranks import this module, which imports JAX only
 inside the parent's functions.
@@ -53,13 +57,17 @@ CASES = {
     'g_accum2_dual': ({'grad_accum_g': 2}, 'g', True, 'vgg'),
     'd_decomposed_dual': ({'decomposed_d': True}, 'd', True, 'patch'),
     'g_decomposed_dual': ({'decomposed_d': True}, 'g', True, 'patch'),
+    'g_msrresnet': ({}, 'g', False, 'vgg'),
 }
+# the cases of the Z-less MSRResNet generator (the others run RRDBNet)
+PLAIN_CASES = ('g_msrresnet',)
+PLAIN_NF, PLAIN_NB = 16, 2
 # the 1 x 4 grid's cases (the 2 x 2 grid runs all)
 EMPTY_SHARD_CASES = ('d_dual', 'g_dual', 'd_decomposed_dual',
                      'g_decomposed_dual')
 # exsr's mesh step is wrong here (module docstring): held to its
 # one-device step
-EXSR_ONE_DEVICE = ('d_decomposed_dual',)
+EXSR_ONE_DEVICE = ('d_decomposed_dual',) + PLAIN_CASES
 # the planted faults, run on the 2 x 2 grid's case
 FAULT_CASE = 'g_dual'
 FAULTS = ('no_share', 'local_count')
@@ -82,9 +90,10 @@ def _plant(trainer, fault: str) -> None:
 # ------------------------------------------------------------------ ranks
 def _build(job: dict, mesh=None):
     """The port's trainer and a fresh state on the CPU from a job's
-    options and weights: the CEM-wrapped RRDBNet, on the rank's height
-    shards when ``mesh`` is given."""
+    options and weights: the CEM-wrapped RRDBNet (or ``MSRResNet``, which
+    takes no Z), on the rank's height shards when ``mesh`` is given."""
     from exsr_torch.cem.cem import CEM, CEMConf, cem_wrap
+    from exsr_torch.models.classifiers import MSRResNet
     from exsr_torch.models.discriminators import (DiscriminatorVGG128,
                                                   PatchGANDiscriminator)
     from exsr_torch.models.rrdb import RRDBNet
@@ -92,21 +101,25 @@ def _build(job: dict, mesh=None):
     from exsr_torch.train.srragan import SRRaGANTrainer, TrainConfig
     cem = CEM.create(CEMConf(scale_factor=4))
     filt = cem.device_filters(3, device='cpu')
+    plain = job.get('plain', False)
     if mesh is None:
-        wrapped = cem_wrap(lambda m, x, z: m(x, z), filt, upscale=4)
+        wrapped = cem_wrap((lambda m, x, z: m(x)) if plain else
+                           (lambda m, x, z: m(x, z)), filt, upscale=4)
         g_apply = lambda m, x, z: wrapped(m, x, z, 0, pre_pad=False)
         g_decomp = lambda m, x, z: wrapped(m, x, z, 0, pre_pad=False,
                                            decompose=True)
     else:
         sharded = spatial.cem_wrap(spatial.rrdbnet_module, filt, 4)
-        g_apply = lambda m, x, z: sharded(m, x, z, 0, False, mesh)
+        g_apply = lambda m, x, z: sharded(m, x, None if plain else z, 0,
+                                          False, mesh)
         g_decomp = lambda m, x, z: sharded(m, x, z, 0, False, mesh,
                                            decompose=True)
     cfg = TrainConfig(**job['cfg'])
     tr = SRRaGANTrainer(cfg, g_apply, cem.invalidity_margins_hr,
                         g_apply_decomp=g_decomp if cfg.decomposed_d
                         else None, mesh=mesh)
-    g = RRDBNet(nb=1, nf=16, gc=8, latent_channels=3)
+    g = (MSRResNet(nf=PLAIN_NF, nb=PLAIN_NB) if plain else
+         RRDBNet(nb=1, nf=16, gc=8, latent_channels=3))
     g.load_state_dict(job['g_state'])
     if job['critic'] == 'vgg':
         d = DiscriminatorVGG128(8, 4, 1, job['d_input'])
@@ -172,6 +185,34 @@ def _cases(grid: str) -> tuple:
 
 
 # ----------------------------------------------------------------- parent
+def _plain_trainers(setup, overrides):
+    """``exsr``'s trainer and state with the CEM-wrapped ``MSRResNet``, and
+    the port's on the same weights (``tests/test_torch_train.py``'s
+    ``_trainers`` for the Z-less generator)."""
+    import jax
+    import jax.numpy as jnp
+    import test_torch_train as TS
+    from exsr.cem.cem import CEM as JCEM, CEMConf as JCEMConf, \
+        cem_wrap as jcem_wrap
+    from exsr.models.classifiers import MSRResNet as JMSR
+    from exsr_torch.models.classifiers import MSRResNet
+    from exsr_torch.models.convert import from_exsr_flat_params
+    jtr0, jstate0, tr0, state0 = TS._trainers(setup, overrides)
+    jmsr = JMSR(nf=PLAIN_NF, nb=PLAIN_NB, upscale=4)
+    lr = setup['batch']['lr']
+    params = jmsr.init(jax.random.PRNGKey(3), jnp.zeros((1,) + lr.shape[1:]))
+    jwrapped = jcem_wrap(lambda p, x, z: jmsr.apply(p, x),
+                         JCEM.create(JCEMConf(scale_factor=4))
+                         .device_filters(3), upscale=4)
+    jtr = type(jtr0)(jtr0.cfg, lambda p, x, z: jwrapped(p, x, z, 0,
+                                                       pre_pad=False),
+                     jtr0.d_apply, margins_hr=setup['margins'])
+    jstate = jtr.init_state(params, jstate0.d_vars, jax.random.PRNGKey(7))
+    g = MSRResNet(nf=PLAIN_NF, nb=PLAIN_NB)
+    g.load_state_dict(from_exsr_flat_params(TS._np(params)))
+    return jtr, jstate, tr0, tr0.init_state(g, state0.d, 0, 'cpu')
+
+
 def _draws(jtr, state, hr_shape, step, dual):
     """The draws ``exsr``'s ``_d_step`` / ``_g_step`` make from its key
     (``tests/test_torch_train.py``'s ``_exsr_d`` and ``_exsr_g`` make
@@ -224,7 +265,13 @@ def _exsr_side(setup, states):
         _, step, dual, _ = CASES[case]
         jtr, jstate = states[case]
         jstate = rules.replicate(jstate)
-        if step == 'd':
+        if case in PLAIN_CASES:
+            from exsr_torch.models.convert import from_exsr_flat_params
+            grads, metrics, stats, _ = TS._exsr_g(jtr, jstate, sharded, dual,
+                                                  True)
+            want = {'grads': from_exsr_flat_params(TS._np(grads)),
+                    'ring': np.asarray(stats.buffer)}
+        elif step == 'd':
             grads, metrics, stats, _ = TS._exsr_d(jtr, jstate, sharded, dual)
             want = {'grads': d_from_exsr_vars({'params': TS._np(grads)})}
             if 'batch_stats' in stats:
@@ -264,10 +311,14 @@ def runs(tmp_path_factory):
         d_input = batch['hr'].shape[1] - 2 * setup['margins']
         jobs, states, one = {}, {}, {}
         for case, (overrides, step, dual, critic) in CASES.items():
-            jtr, jstate, tr, state = TS._trainers(setup, overrides, critic)
+            plain = case in PLAIN_CASES
+            jtr, jstate, tr, state = (
+                _plain_trainers(setup, overrides) if plain else
+                TS._trainers(setup, overrides, critic))
             states[case] = (jtr, jstate)
             jobs[case] = {
-                'cfg': dict(tr.cfg.__dict__), 'critic': critic,
+                'plain': plain, 'cfg': dict(tr.cfg.__dict__),
+                'critic': critic,
                 'd_input': d_input,
                 'g_state': {k: v.clone()
                             for k, v in state.g.state_dict().items()},
@@ -362,7 +413,7 @@ def test_kept_rows_and_errors(runs):
 
 
 def test_one_process_arguments_and_plain_generators_raise():
-    from exsr_torch.models.classifiers import MSRResNet
+    from exsr_torch.models.sft import SFTNet
     from exsr_torch.parallel import spatial
     from exsr_torch.parallel.mesh import Mesh, TrainGrid
     from exsr_torch.parallel.dist import DataParallel
@@ -374,6 +425,8 @@ def test_one_process_arguments_and_plain_generators_raise():
     with pytest.raises(ValueError, match='spatial > 1'):
         TrainGrid(Mesh(2, 1, torch.device('cpu')), 40)
     rows = spatial.Rows.equal(mesh, 7)
+    # MSRResNet and SRResNet have sharded forwards now
+    # (tests/test_torch_mesh.py); a generator class without one raises
     with pytest.raises(ValueError, match='no height-sharded forward'):
-        spatial.rrdbnet_module(MSRResNet(nf=8, nb=1), torch.zeros(1, 7, 8, 3),
+        spatial.rrdbnet_module(SFTNet(n_blocks=1), torch.zeros(1, 7, 8, 3),
                                None, rows)
