@@ -4,7 +4,7 @@ Run from the repository root on a machine with an NVIDIA H100::
 
     python3 chip_smoke.py
 
-Phases, one JSON line each:
+Phases, one JSON line each (``t_s``: seconds since the script started):
 
 1. environment: torch and CUDA versions, nvcc, the card and its power limit;
 2. build: every hand-written kernel, compiled from ``exsr_torch/csrc``
@@ -19,10 +19,12 @@ Phases, one JSON line each:
    kernel, the composition's time, their times as CUDA-graph replays
    (``graph_ms``: a short kernel launched one by one waits on the host)
    and ``CEMFilters.enforce`` alone on both routes; for the stage-4
-   epilogue also its bytes per second and the time of the same epilogue as
-   cuDNN conv plus elementwise ops (``library_chain_ms``); for the fused
-   RDB the time of the port's unfused module on the same block (five cuDNN
-   convs: ``library_chain_ms``) and the TFLOP/s it executes, halo included;
+   epilogue also its bytes per second, its graph replay, the time of the
+   same epilogue as cuDNN conv plus elementwise ops (``library_chain_ms``)
+   and, in fp32, the same at the edit crop (batch 1, LR 56); for the fused
+   RDB its graph replay, the time of the port's unfused module on the same
+   block (five cuDNN convs: ``library_chain_ms``) and the TFLOP/s it
+   executes, halo included (``executed_flops_bf16`` / ``_fp32``);
 4. main path: the CEM-wrapped 23-block generator forward at full width
    (LR 128 -> HR 512, x4, bf16 trunk, fp32 CEM, seeded weights) serving
    three requests; CEM consistency, launch counts, time per forward, a
@@ -127,8 +129,9 @@ Phases, one JSON line each:
    16 synthetic 256 x 256 PNGs (two steps, a validation, checkpoints, a
    resume), ``--chroma --y_ckpt`` on its checkpoint, and ``eval_jpeg
    --checkpoint`` on it;
-20. kernelgan: ``KernelGAN.estimate`` at its default configuration (3000
-   iterations) on the in-repo 276 x 276 face degraded by a known
+20. kernelgan: ``KernelGAN.estimate`` at its default configuration but
+   1000 iterations (``KG_ITERS``; 3000 by default) on the in-repo 276 x
+   276 face degraded by a known
    anisotropic Gaussian x2 kernel: seconds, launches per iteration, busy
    share, kernel quality (reported, not gated); its first iterations
    against the CPU; ``EditSession.estimate_kernel`` (300 iterations) at
@@ -227,8 +230,11 @@ ranks per forward (``spatial``), on each of phase 28's two ranks per
 sharded training step (``spatial_train``) and on each of phase 29's
 ranks per plain forward and ``MSRResNet`` G step (``spatial_jpeg``); the
 ``stage4`` and ``rdb``
-rows carry the fp32 kernel's time beside its library chain's (cuDNN fp32,
-TF32 off: ``fp32_ms``, ``fp32_library_chain_ms``).
+rows carry the fp32 body's error, times (events and graph replay), plain
+version's time and bound beside its library chain's (cuDNN fp32, TF32 off:
+``fp32_ms``, ``fp32_graph_ms``, ``fp32_library_chain_ms``, ...), ``rdb``'s
+its executed TFLOP/s (``fp32_executed_tflops``) and ``stage4``'s its times
+at the edit crop, batch 1, LR 56 (``fp32_edit_*``).
 
 Any failed check raises and the script exits non-zero.  The last lines are
 the kernels summary, the ``nvidia-smi`` name and power limit, and
@@ -244,7 +250,7 @@ import sys
 import time
 
 from exsr_torch.ops.kernels.measure import (BF16_FLOPS, FP32_FLOPS,
-                                            bound_ms, cuda_ms,
+                                            bound_ms, cuda_ms, graph_ms,
                                             sepfilter_kernels,
                                             sepfilter_taps_kernels)
 
@@ -299,6 +305,10 @@ KG_IMAGE = 'artifacts/convergence_r3/face_SR.png'
 # 80GB HBM3 at 700 W, which put the whole script past 600 s; the session's
 # took 117 s on one, which put the whole script at 1190 s of its 1200)
 KG_CHECK_ITERS, KG_EVAL_LR, KG_EVAL_ITERS = 20, 128, 300
+# the main estimation's iterations: 1000 of the default 3000 (at 3000 it
+# took 118 s on a slow host, which put the whole script at 1057 s of its
+# 1200)
+KG_ITERS = 1000
 # the exploration server: the HR image it opens, the steps of an edit and
 # of a digit request
 WEB_HR, WEB_ITERS, WEB_DIGIT_ITERS = 256, 10, 5
@@ -357,8 +367,13 @@ PLAIN_NF, PLAIN_NB, PLAIN_TOL, PLAIN_EXCHANGES = 64, 16, 1e-4, 24
 LSTRUCT_METRIC_TOL = 1e-2
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({'phase': phase, **fields}), flush=True)
+    """One phase line, with the seconds since the script started."""
+    print(json.dumps({'phase': phase, **fields,
+                      't_s': time.perf_counter() - _T0}), flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -384,24 +399,30 @@ def phase_kernels(filt, device):
             results[f'sepfilter_taps[{kind},{tag}]'] = rec
             emit('kernel', name=f'sepfilter_taps[{kind},{tag}]', **rec)
 
-    # kernel 2: the stage-4 epilogue at LR 128, nf 64, gc 32
+    # kernel 2: the stage-4 epilogue at LR 128, nf 64, gc 32; fp32 also at
+    # the edit crop (batch 1, the window-32 crop), where an edit step and
+    # the server launch it 69 times a forward
     nf, gc = 64, 32
-    for dtype in (torch.bfloat16, torch.float32):
-        args = stage4_inputs(gen, device, dtype, BATCH, LR, nf, gc)
+    for tag, dtype, batch, lr in (
+            ('bf16', torch.bfloat16, BATCH, LR),
+            ('fp32', torch.float32, BATCH, LR),
+            ('fp32_edit', torch.float32, 1, EDIT_TAPS_LR)):
+        args = stage4_inputs(gen, device, dtype, batch, lr, nf, gc)
         ref, err, tol = stage4_check(args, dtype)
         ms = cuda_ms(stage4, [args], 40)
         plain = cuda_ms(stage4_plain, [args], 40)
-        pix = BATCH * LR * LR
+        pix = batch * lr * lr
         size = 2 if dtype == torch.bfloat16 else 4
         nbytes = size * pix * (gc + 4 * nf + 2 * nf) + 9 * gc * nf * size \
             + 4 * nf
+        flops = 2 * 9 * gc * nf * pix
         peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-        bms, by = bound_ms(nbytes, 2 * 9 * gc * nf * pix, peak)
-        tag = 'bf16' if dtype == torch.bfloat16 else 'fp32'
+        bms, by = bound_ms(nbytes, flops, peak)
         results[f'stage4_{tag}'] = dict(
-            shape=[BATCH, LR, LR, nf], dtype=tag, max_abs_err=err, tol=tol,
-            ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-            gbytes_per_s=nbytes / ms / 1e6)
+            shape=[batch, lr, lr, nf], dtype=tag[:4], max_abs_err=err,
+            tol=tol, ms=ms, graph_ms=graph_ms(stage4, [args], 40),
+            plain_ms=plain, bound_ms=bms, bound_by=by,
+            gbytes_per_s=nbytes / ms / 1e6, tflops=flops / ms / 1e9)
         results[f'stage4_{tag}'].update(stage4_chain(args, ref))
         emit('kernel', name=f'stage4[{tag}]', **results[f'stage4_{tag}'])
         del ref, args
@@ -511,6 +532,7 @@ def kernel_rdb(gen, device):
     from exsr_torch.device import full_fp32
     from exsr_torch.models.rrdb import ResidualDenseBlock
     from exsr_torch.ops.kernels.rrdb_block import (executed_flops_bf16,
+                                                   executed_flops_fp32,
                                                    pack_rdb, rdb, rdb_plain)
     nf, gc, nz = 64, 32, 3
     cins = [nz + nf + i * gc for i in range(5)]
@@ -546,6 +568,7 @@ def kernel_rdb(gen, device):
             check(excess.item() <= 0, f'rdb[bf16] error {err} beyond {tol}')
         differ = (diff > 0).float().mean().item()
         ms = cuda_ms(rdb, sets, iters)
+        gms = graph_ms(rdb, sets, iters)
         plain = cuda_ms(rdb_plain, sets, max(2, iters // 4))
         pix = BATCH * LR * LR
         size = 2 if dtype == torch.bfloat16 else 4
@@ -557,8 +580,8 @@ def kernel_rdb(gen, device):
         tag = 'bf16' if dtype == torch.bfloat16 else 'fp32'
         results[f'rdb_{tag}'] = dict(
             shape=[BATCH, LR, LR, nf], dtype=tag, max_abs_err=err, tol=tol,
-            share_differing=differ, ms=ms, plain_ms=plain, bound_ms=bms,
-            bound_by=by, tflops=flops / ms / 1e9)
+            share_differing=differ, ms=ms, graph_ms=gms, plain_ms=plain,
+            bound_ms=bms, bound_by=by, tflops=flops / ms / 1e9)
         # A yardstick, not one call: the port's unfused module on the same
         # inputs and weights (five cuDNN convs on the growing concat,
         # leaky_relu, residual; fp32 with TF32 off).  The fused path never
@@ -575,9 +598,10 @@ def kernel_rdb(gen, device):
                           for x, z, _ in sets]
             results[f'rdb_{tag}']['library_chain_ms'] = cuda_ms(
                 chain, chain_sets, iters)
-        if dtype == torch.bfloat16:
-            results[f'rdb_{tag}']['executed_tflops'] = executed_flops_bf16(
-                BATCH, LR, LR, nf, gc) / ms / 1e9
+        executed = (executed_flops_bf16(BATCH, LR, LR, nf, gc)
+                    if dtype == torch.bfloat16 else
+                    executed_flops_fp32(BATCH, LR, LR, nf, gc, nz))
+        results[f'rdb_{tag}']['executed_tflops'] = executed / ms / 1e9
         del chain, chain_sets
         emit('kernel', name=f'rdb[{tag}]', **results[f'rdb_{tag}'])
         del sets, out, ref, diff, w
@@ -826,7 +850,8 @@ def reference_check(net, cem, device):
 
 def fused_reference_check(cem, device):
     """The fused-trunk generator, full width, fp32, on a small input: the
-    kernels on the card against the plain versions on the CPU."""
+    kernels on the card against the plain versions on the CPU, and the
+    card's forward time, warm (``card_ms``)."""
     import torch
     from exsr_torch.cem.cem import cem_wrap
     from exsr_torch.models.rrdb import RRDBNet
@@ -844,11 +869,19 @@ def fused_reference_check(cem, device):
             outs[str(dev)] = wrapped(None, lr.to(dev), z.to(dev),
                                      cem.invalidity_margins_lr,
                                      pre_pad=True).cpu()
+        if dev == device:  # the card's forward again, warm: its time
+            with torch.inference_mode():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                wrapped(None, lr.to(dev), z.to(dev),
+                        cem.invalidity_margins_lr, pre_pad=True)
+                torch.cuda.synchronize()
+                card_ms = 1e3 * (time.perf_counter() - t0)
     err = (outs['cpu'] - outs[str(device)]).abs().max().item()
     # fp32 through ~350 convs summed in another order on each side
     check(err < 1e-4, f'fused card vs CPU max error {err} >= 1e-4')
     return {'shape': [2, 16, 16, 3], 'dtype': 'fp32', 'pre_pad': True,
-            'max_abs_err': err, 'tol': 1e-4}
+            'max_abs_err': err, 'tol': 1e-4, 'card_ms': card_ms}
 
 
 def _window_mask(w_lr: int):
@@ -2737,7 +2770,7 @@ def phase_kernelgan(device, name):
     t_phase = time.perf_counter()
     hr, lr, k_true = _kg_image()
     with tf32_on() as flags:
-        kg = KernelGAN(KernelGANConfig(), device=device)
+        kg = KernelGAN(KernelGANConfig(max_iters=KG_ITERS), device=device)
         t0 = time.perf_counter()
         k = kg.estimate(lr)
         torch.cuda.synchronize()
@@ -5237,6 +5270,14 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def fp32_fields(kern, key) -> dict:
+    """The fp32 body's phase-3 record beside a kernel's row: its error,
+    times, bound and the fp32 library chain's time."""
+    return {f'fp32_{k}': kern[key][k] for k in (
+        'max_abs_err', 'ms', 'graph_ms', 'plain_ms', 'bound_ms', 'bound_by',
+        'library_chain_ms')}
+
+
 def _phases(device, name, smi, tmp) -> int:
     """Phases 3-29 and the last lines; ``tmp`` is a scratch directory."""
     import torch
@@ -5315,15 +5356,17 @@ def _phases(device, name, smi, tmp) -> int:
             source='exsr_torch/csrc/stage4.cu',
             replaces='exsr/ops/pallas/stage4.py:82', path='main',
             library_chain_ms=kern['stage4_bf16']['library_chain_ms'],
-            fp32_ms=kern['stage4_fp32']['ms'],
-            fp32_library_chain_ms=kern['stage4_fp32']['library_chain_ms'],
+            **fp32_fields(kern, 'stage4_fp32'),
+            **{f'fp32_edit_{k}': kern['stage4_fp32_edit'][k] for k in (
+                'shape', 'max_abs_err', 'ms', 'graph_ms', 'plain_ms',
+                'bound_ms')},
             web=web['stage4'], spatial=spatial_launches(spat, 'stage4')),
         row('rdb', 'rdb_bf16', fused_launches, fused_forwards,
             source='exsr_torch/csrc/rdb.cu',
             replaces='exsr/ops/pallas/rrdb_block.py:145', path='fused',
             library_chain_ms=kern['rdb_bf16']['library_chain_ms'],
-            fp32_ms=kern['rdb_fp32']['ms'],
-            fp32_library_chain_ms=kern['rdb_fp32']['library_chain_ms'],
+            **fp32_fields(kern, 'rdb_fp32'),
+            fp32_executed_tflops=kern['rdb_fp32']['executed_tflops'],
             web=web['rdb'], spatial=spatial_launches(spat, 'rdb')),
         dict(taps_row(kern, edit_runs), train=train['sepfilter_taps'],
              web=web['sepfilter_taps'],

@@ -27,7 +27,8 @@
 // later convs need) and written into its slot; outside the image it writes
 // zeros.  conv 4 adds the residual from the staged x and writes the tile to
 // device memory.  Intermediates never leave the SM; the cost is recomputing
-// the halo: 1.53x the useful work at 8 x 16 (bf16), 2.26x at 4 x 8 (fp32).
+// the halo: 1.53x the useful work at 8 x 16 (bf16).  The fp32 body cuts it
+// with a thread-block cluster (below).
 //
 // bf16: 8 x 16 tiles, 202 KB of pixels plus a 27 KB weight ring in shared
 // memory, one block per SM: two consumer warpgroups, a producer warp and a
@@ -77,8 +78,43 @@
 // Staging (5 %) and the five epilogues (7 %) run with the tensor cores
 // idle, and the kernel executes 1.75x the useful work (halo, z padding,
 // ragged units).
-// fp32: 4 x 8 tiles and fp32 FMA, 4 pixels x 8 channels per thread, 12
-// warps.  It runs in reference checks only.
+// fp32: the default dtype of RRDBNet(fused_trunk=True) (rrdb.py), which
+// chip_smoke.py's fused fp32 check and the fp32 fused-path tests run.  fp32
+// FMA on the CUDA cores (TF32 stays off), bound by operations: 128.3 GFLOP
+// at batch 16, LR 128, nf 64, gc 32 is 1.92 ms at 67 TFLOP/s.  The first
+// version, a block per 4 x 8 tile with a 5-pixel halo, executed 2.26x the
+// useful work, read its weights through L1 and took 29.6 ms; the fp32
+// cuDNN chain of five convs takes 6.4 ms.  This one:
+//  * A 2 x 2 thread-block cluster of 8 x 8 tiles (rdb_fma_kernel).  Each
+//    block holds a 14 x 14 pixel buffer: 5 pixels beyond its tile on its
+//    two outer sides (those of the cluster's 16 x 16), 1 on its inner
+//    sides.  Conv i runs on the tile grown by 4 - i pixels on the outer
+//    sides only; after it, each block tells the other three (a remote
+//    mbarrier arrive, cluster scope) and copies the 1-pixel inner strips
+//    of c_i from their shared memory (the corner from the diagonal one).
+//    The halo is recomputed only on the cluster's edge: 1.44x the useful
+//    work (executed_flops_fp32 in the wrapper, the last pixel groups'
+//    padding included), 154 KB of buffer at a pixel stride of 196 floats
+//    (z in round_up(nz, 4) slots, 4 mod 8 for conflict-free float4 reads).
+//  * A producer warp streams the five convs' weights, [tap][K][N] fp32,
+//    tap by tap in chunks of K by bulk copies into a ring (3 slots of 16 KB
+//    at the main widths) under full / empty mbarriers; z's rows past
+//    round_up(nz, 4) are skipped.
+//  * The products are fma_conv.cuh's routine: each of two halves of 4
+//    consumer warps sums half of every chunk's rows for the same units (9
+//    pixels x 4 outputs a thread in conv 0; 4 x 8 in conv 4), and the
+//    second half's sums reach the first through shared memory.
+// What bounds it: the FMA loops (84 % of a block's clocks) issue an FFMA
+// about every 2 clocks (conv 0: 44k clocks for 22k FFMAs a scheduler)
+// where ptxas's loop has 1.2 instructions per FFMA: 153 of the 9 x 4
+// loop's 288 FFMAs read their two non-reused operands from one register
+// bank (register number mod 2), and ptxas chooses the registers.  Shared loads
+// cost 16 % on top (a copy with the loads hoisted out of the loop), the
+// epilogues and exchanges 11 %, staging 2 % (rdb_probe.py --phases,
+// --ablate).  One warp a scheduler with no K split (7.3 ms), 9 x 8 tiles
+// in groups of 64 threads (7.6 and 8.3 ms: ptxas caps a 288-thread block
+// at 168 registers, and they spill) and unrolls of 1 or 4 did no better.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,10 +122,11 @@
 #include <type_traits>
 #include <utility>
 
+#include "fma_conv.cuh"
+
 namespace {
 
 constexpr int kZs = 16;        // channel slots of z (nz <= 16), zero-padded
-constexpr int kThreads = 384;  // fp32: 12 warps
 // bf16: the consumer warpgroups, then the producer warp and the relay warp
 constexpr int kWgs = 2;
 constexpr int kConsumers = 128 * kWgs;
@@ -113,6 +150,7 @@ struct Params {
   const float* bias;  // packed fp32 biases of the five convs
   int H, W, nf, nz, gcp, cs;
   int w_off[5], b_off[5];  // element offsets of conv i in w and bias
+  int zs, slots, slot_bytes;  // fp32: z's buffer slots, the weight ring
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -202,30 +240,6 @@ __device__ __forceinline__ void load_inputs(const Params& p,
     }
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// fp32: one element at a time (the fp32 pixel stride is odd)
-template <typename T, int TH, int TW>
-__device__ __forceinline__ void load_inputs(const Params& p, T* feat,
-                                            int ty0, int tx0, size_t img) {
-  constexpr int BH = TH + 10, BW = TW + 10;
-  const T* x = static_cast<const T*>(p.x);
-  const T* z = static_cast<const T*>(p.z);
-  const int c0 = kZs + p.nf;
-  for (int idx = threadIdx.x; idx < BH * BW * c0; idx += kThreads) {
-    const int px = idx / c0, c = idx - px * c0;
-    const int by = px / BW, bx = px - by * BW;
-    const int gy = ty0 + by, gx = tx0 + bx;
-    T v = from_f<T>(0.f);
-    if (gy >= 0 && gy < p.H && gx >= 0 && gx < p.W) {
-      const size_t g = img + (size_t)gy * p.W + gx;
-      if (c >= kZs)
-        v = x[g * p.nf + (c - kZs)];
-      else if (c < p.nz)
-        v = z[g * p.nz + c];
-    }
-    feat[px * p.cs + c] = v;
-  }
 }
 
 // Geometry of conv i: its output region is the tile grown by 4 - i pixels
@@ -687,85 +701,11 @@ __device__ __forceinline__ void convs_bf16(const Params& p,
     conv_units<TH, TW, 16>(p, feat, r, 4, ty0, tx0, img);
 }
 
-// conv i on fp32 FMA: a thread step covers 4 region pixels x 8 outputs.
-// Weights: [tap][K][N] fp32.
-template <int TH, int TW>
-__device__ __forceinline__ void conv_fma(const Params& p, float* feat, int i,
-                                         int ty0, int tx0, size_t img) {
-  constexpr int BW = TW + 10;
-  const Stage s(p, i, TH, TW);
-  const int groups = s.n / 8;
-  const int steps = (s.m + 3) / 4 * groups;
-  const float* wk = static_cast<const float*>(p.w) + p.w_off[i];
-  const float* bias = p.bias + p.b_off[i];
-
-  for (int u = threadIdx.x; u < steps; u += kThreads) {
-    const int pg = u / groups, n0 = (u - pg * groups) * 8;
-    int base[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = min(pg * 4 + j, s.m - 1);
-      const int ry = m / s.rw, rx = m - ry * s.rw;
-      base[j] = ((s.o - 1 + ry) * BW + (s.o - 1 + rx)) * p.cs;
-    }
-    float acc[4][8];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[j][c] = bias[n0 + c];
-    for (int tap = 0; tap < 9; ++tap) {
-      const int toff = ((tap / 3) * BW + tap % 3) * p.cs;
-      const float* wt = wk + (size_t)tap * s.k * s.n + n0;
-#pragma unroll 4
-      for (int k = 0; k < s.k; ++k) {
-        float a[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) a[j] = feat[base[j] + toff + k];
-        const float4 w0 = __ldg(reinterpret_cast<const float4*>(wt + k * s.n));
-        const float4 w1 =
-            __ldg(reinterpret_cast<const float4*>(wt + k * s.n + 4));
-        const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[j][c] = fmaf(a[j], w[c], acc[j][c]);
-      }
-    }
-
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = pg * 4 + j;
-      if (m >= s.m) continue;
-      const int ry = m / s.rw, rx = m - ry * s.rw;
-      const int bp = (s.o + ry) * BW + (s.o + rx);
-      const int gy = ty0 + s.o + ry, gx = tx0 + s.o + rx;
-      const bool inside = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
-      if (i < 4) {
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          feat[bp * p.cs + s.k + n0 + c] = inside ? leaky(acc[j][c]) : 0.f;
-      } else if (inside) {
-        const size_t gp = (img + (size_t)gy * p.W + gx) * p.nf;
-        const float* x0 = static_cast<const float*>(p.x0);
-        float* out = static_cast<float*>(p.out);
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          out[gp + n0 + c] = residual(
-              acc[j][c], feat[bp * p.cs + kZs + n0 + c], x0, gp + n0 + c);
-      }
-    }
-  }
-}
-
 template <typename T>
 struct Tile;
 template <>
 struct Tile<__nv_bfloat16> {
   static constexpr int h = 8, w = 16, threads = kThreadsMma;
-};
-template <>
-struct Tile<float> {
-  static constexpr int h = 4, w = 8, threads = kThreads;
 };
 
 template <typename T>
@@ -775,7 +715,7 @@ __host__ __device__ size_t feat_bytes(int cs) {
 
 template <typename T>
 size_t rdb_smem(int cs) {
-  return feat_bytes<T>(cs) + (sizeof(T) == 2 ? kRingBytes : 0);
+  return feat_bytes<T>(cs) + kRingBytes;
 }
 
 template <typename T>
@@ -807,33 +747,420 @@ __global__ void __launch_bounds__(Tile<T>::threads, 1)
     load_inputs<TH, TW>(p, feat, ty0, tx0, img);
     consumer_sync();
     convs_bf16<TH, TW>(p, feat, ring, ty0, tx0, img);
-  } else {
-    load_inputs<T, TH, TW>(p, feat, ty0, tx0, img);
-    __syncthreads();
-    for (int i = 0; i < 5; ++i) {
-      // conv i reads slots [0, K_i) and writes [K_i, K_i + gcp): no overlap
-      conv_fma<TH, TW>(p, feat, i, ty0, tx0, img);
-      __syncthreads();
+  }
+}
+
+// ---- fp32: a 2 x 2 thread-block cluster, fp32 FMA (fma_conv.cuh) ----
+
+constexpr int kFT = 8;              // a block's output tile, kFT x kFT
+constexpr int kFB = kFT + 6;        // its buffer: 5 outer + 1 inner halo
+constexpr int kFC = 256;            // consumer threads: two halves of
+constexpr int kFHalf = kFC / 2;     // 4 warps, each half a chunk's K
+constexpr int kFThreads = kFC + 32; // and one producer warp
+constexpr int kFMaxSlots = 4;       // weight ring slots
+constexpr int kFSlotBytes = 16384;
+constexpr int kFMaxPx = 9;          // pixels a thread's register tile holds
+// full and empty mbarriers per slot, one "c_i is written" per conv 0..3
+constexpr int kFBarBytes = 128;
+static_assert(8 * (2 * kFMaxSlots + 4) <= kFBarBytes, "barriers fit");
+constexpr int kMaxSmem = 232448;    // dynamic shared memory a block may use
+
+// z's slots in the fp32 buffer: nz rounded up to 4 (the packed weights
+// keep 16 rows for z; the rows past zs are zero and are not copied)
+__host__ __device__ constexpr int fp32_zs(int nz) { return (nz + 3) / 4 * 4; }
+
+__host__ __device__ inline size_t fp32_feat_bytes(int cs) {
+  return (size_t)kFB * kFB * cs * 4;
+}
+
+// The second half's partial sums, [acc index][thread]: 4 NV PX floats of
+// each of kFHalf threads, the most any conv of (nf, gcp) needs.
+__host__ __device__ inline size_t fp32_scratch_bytes(int nf, int gcp);
+
+// The weight ring: up to kFMaxSlots slots of 16 KB in what the buffer
+// and the scratch leave, at least two (smaller if need be); (0, 0) when
+// not even two slots of 1 KB fit.
+struct RingShape {
+  int slots, bytes;
+};
+__host__ __device__ inline RingShape fp32_ring(int cs, int nf, int gcp) {
+  const long free_ = (long)kMaxSmem - kFBarBytes -
+                     (long)fp32_feat_bytes(cs) -
+                     (long)fp32_scratch_bytes(nf, gcp);
+  if (free_ >= 2L * kFSlotBytes) {
+    const long s = free_ / kFSlotBytes;
+    return {int(s < kFMaxSlots ? s : kFMaxSlots), kFSlotBytes};
+  }
+  const int bytes = int(free_ / 2) / 16 * 16;
+  return bytes >= 1024 ? RingShape{2, bytes} : RingShape{0, 0};
+}
+
+size_t fp32_smem(int cs, int nf, int gcp) {
+  const RingShape r = fp32_ring(cs, nf, gcp);
+  return kFBarBytes + fp32_feat_bytes(cs) + fp32_scratch_bytes(nf, gcp) +
+         (size_t)(r.slots ? r.slots : 2) * (r.bytes ? r.bytes : 1024);
+}
+
+// A conv's thread mapping: NV float4s of outputs (2 when N > 32), cgs
+// channel groups, pgs pixel groups of px pixels each (pixel j of group g is
+// region pixel j * pgs + g, so a warp's lanes read consecutive pixels).
+struct Units {
+  int nv, cgs, pgs, px;
+};
+__host__ __device__ inline Units fp32_units(int m, int n) {
+  Units u;
+  u.nv = n > 32 ? 2 : 1;
+  u.cgs = n / (4 * u.nv);
+  u.pgs = kFHalf / u.cgs;
+  u.px = (m + u.pgs - 1) / u.pgs;
+  return u;
+}
+
+__host__ __device__ inline size_t fp32_scratch_bytes(int nf, int gcp) {
+  size_t most = 0;
+  for (int i = 0; i < 5; ++i) {
+    const int side = kFT + 4 - i;
+    const Units u = fp32_units(side * side, i < 4 ? gcp : nf);
+    const size_t b = (size_t)4 * u.nv * u.px * kFHalf * 4;
+    most = b > most ? b : most;
+  }
+  return most;
+}
+
+// Rows of K a ring slot holds for N outputs (a multiple of 4).
+__host__ __device__ inline int fp32_chunk_rows(int slot_bytes, int n) {
+  return slot_bytes / (4 * n) / 4 * 4;
+}
+
+struct FRing {
+  uint32_t data, bars;  // shared addresses of slot 0 and the barriers
+  const float* ptr;     // slot 0, generic
+  int slots, bytes, slot = 0;
+  uint32_t phase = 0;
+  __device__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ uint32_t empty(int s) const {
+    return bars + 8 * (kFMaxSlots + s);
+  }
+  __device__ void advance() {
+    if (++slot == slots) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// barrier of the consumer threads alone
+__device__ __forceinline__ void fp32_consumer_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kBarConsumers), "n"(kFC)
+               : "memory");
+}
+
+// One thread: stream the five convs' weights, tap by tap and chunk by
+// chunk of K, in the order the consumers read them.  A chunk is one or two
+// bulk copies: buffer slot r < zs is packed row r, slot r >= zs packed row
+// r + 16 - zs.
+__device__ __forceinline__ void produce_fp32(const Params& p, FRing r) {
+  const float* w = static_cast<const float*>(p.w);
+  for (int i = 0; i < 5; ++i) {
+    const int k = p.zs + p.nf + i * p.gcp, kg = kZs + p.nf + i * p.gcp;
+    const int n = i < 4 ? p.gcp : p.nf;
+    const int rows = fp32_chunk_rows(r.bytes, n);
+    for (int tap = 0; tap < 9; ++tap) {
+      const float* wt = w + p.w_off[i] + (size_t)tap * kg * n;
+      for (int r0 = 0; r0 < k; r0 += rows) {
+        const int r1 = min(k, r0 + rows);
+        mbar_wait(r.empty(r.slot), r.phase ^ 1);
+        mbar_expect_tx(r.full(r.slot), (r1 - r0) * n * 4);
+        const uint32_t dst = r.data + r.slot * r.bytes;
+        if (r0 < p.zs)
+          bulk_copy(dst, wt + (size_t)r0 * n, (min(r1, p.zs) - r0) * n * 4,
+                    r.full(r.slot));
+        const int s0 = max(r0, p.zs);
+        if (s0 < r1)
+          bulk_copy(dst + (s0 - r0) * n * 4,
+                    wt + (size_t)(s0 + kZs - p.zs) * n, (r1 - s0) * n * 4,
+                    r.full(r.slot));
+        r.advance();
+      }
     }
   }
 }
 
+// conv i for one consumer thread, PX pixels x 4 NV outputs of its units:
+// the ring's chunks through fma_conv::mac, the first half of each chunk's
+// rows by threads [0, kFHalf), the rest by [kFHalf, kFC) on the same units;
+// the second half's sums through `scratch` into the first's, which runs
+// the epilogue (c_i into the buffer, zero outside the image; conv 4: the
+// residual to `out`).
+template <int PX, int NV>
+__device__ __forceinline__ void conv_fp32(const Params& p, float* feat,
+                                          float* scratch, FRing& r, int i,
+                                          const Units& u, int ry0, int rx0,
+                                          int oy, int ox, size_t img) {
+  const int side = kFT + 4 - i, m = side * side;
+  const int k = p.zs + p.nf + i * p.gcp, n = i < 4 ? p.gcp : p.nf;
+  const int rows = fp32_chunk_rows(r.bytes, n);
+  const int half = threadIdx.x / kFHalf, t = threadIdx.x % kFHalf;
+  const int cg = t % u.cgs;
+  int pg = t / u.cgs;
+  const bool active = pg < u.pgs;
+  if (!active) pg = 0;  // computes a duplicate, stores nothing
+  int bp[PX];           // buffer pixel of each region pixel
+#pragma unroll
+  for (int j = 0; j < PX; ++j) {
+    const int mm = min(j * u.pgs + pg, m - 1);
+    const int ry = mm / side;
+    bp[j] = (ry0 + ry) * kFB + rx0 + mm - ry * side;
+  }
+  float4 acc[PX][NV] = {};
+  for (int tap = 0; tap < 9; ++tap) {
+    const int toff = (tap / 3 - 1) * kFB + tap % 3 - 1;
+    for (int r0 = 0; r0 < k; r0 += rows) {
+      // this half's rows of the chunk: the first ceil(steps / 2) steps of
+      // 4, or the rest
+      const int nr = min(rows, k - r0), split = (nr / 4 + 1) / 2 * 4;
+      const int h0 = half ? split : 0, hn = half ? nr - split : split;
+      const float* a[PX];
+#pragma unroll
+      for (int j = 0; j < PX; ++j)
+        a[j] = feat + (bp[j] + toff) * p.cs + r0 + h0;
+      mbar_wait(r.full(r.slot), r.phase);
+      fma_conv::mac<PX, NV>(
+          acc, a, r.ptr + r.slot * (r.bytes / 4) + h0 * n + 4 * cg, n, n / 2,
+          hn);
+      __syncwarp();
+      mbar_arrive_lane0(r.empty(r.slot));
+      r.advance();
+    }
+  }
+  float4* part = reinterpret_cast<float4*>(scratch);
+  if (half) {
+#pragma unroll
+    for (int j = 0; j < PX; ++j)
+#pragma unroll
+      for (int v = 0; v < NV; ++v) part[(j * NV + v) * kFHalf + t] = acc[j][v];
+  }
+  fp32_consumer_sync();
+  if (half) return;
+#pragma unroll
+  for (int j = 0; j < PX; ++j) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const float4 o = part[(j * NV + v) * kFHalf + t];
+      acc[j][v].x += o.x;
+      acc[j][v].y += o.y;
+      acc[j][v].z += o.z;
+      acc[j][v].w += o.w;
+    }
+  }
+  if (!active) return;
+  const float* bias = p.bias + p.b_off[i];
+#pragma unroll
+  for (int j = 0; j < PX; ++j) {
+    if (j * u.pgs + pg >= m) continue;
+    const int by = bp[j] / kFB, bx = bp[j] - by * kFB;
+    const int gy = oy + by, gx = ox + bx;
+    const bool inside = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int c = 4 * cg + v * (n / 2);
+      const float4 s = fma_conv::channels(acc[j][v]);
+      const float sum[4] = {s.x, s.y, s.z, s.w};
+      float o[4];
+      if (i < 4) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[e] = inside ? leaky(__fadd_rn(sum[e], bias[c + e])) : 0.f;
+        *reinterpret_cast<float4*>(feat + bp[j] * p.cs + k + c) =
+            make_float4(o[0], o[1], o[2], o[3]);
+      } else if (inside) {
+        const size_t gp = (img + (size_t)gy * p.W + gx) * p.nf + c;
+        const float* x0 = static_cast<const float*>(p.x0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[e] = residual(__fadd_rn(sum[e], bias[c + e]),
+                          feat[bp[j] * p.cs + p.zs + c + e], x0, gp + e);
+        *reinterpret_cast<float4*>(static_cast<float*>(p.out) + gp) =
+            make_float4(o[0], o[1], o[2], o[3]);
+      }
+    }
+  }
+}
+
+template <int NV, int PX = 1>
+__device__ __forceinline__ void conv_fp32_px(const Params& p, float* feat,
+                                             float* scratch, FRing& r, int i,
+                                             const Units& u, int ry0,
+                                             int rx0, int oy, int ox,
+                                             size_t img) {
+  if constexpr (PX < kFMaxPx) {
+    if (u.px > PX)
+      return conv_fp32_px<NV, PX + 1>(p, feat, scratch, r, i, u, ry0, rx0,
+                                      oy, ox, img);
+  }
+  conv_fp32<PX, NV>(p, feat, scratch, r, i, u, ry0, rx0, oy, ox, img);
+}
+
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Wait, with cluster-scope acquire, for the barrier to leave phase 0.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "0;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar)
+        : "memory");
+    if (spins > (1u << 28)) __trap();
+  }
+}
+
+// A block of the 2 x 2 cluster (cx, cy) owns the output tile at (8 by,
+// 8 bx) and a 14 x 14 buffer: 5 pixels beyond the tile on its outer sides
+// (those of the cluster's 16 x 16), 1 on its inner sides.  Conv i runs on
+// the tile grown by 4 - i pixels on the outer sides only; the 1-pixel
+// strip of c_i its inner sides need comes from the other three blocks'
+// shared memory once they have written it.
+__global__ void __cluster_dims__(2, 2, 1) __launch_bounds__(kFThreads, 1)
+    rdb_fma_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  namespace cgp = cooperative_groups;
+  cgp::cluster_group cluster = cgp::this_cluster();
+  const uint32_t bars = smem_u32(smem_raw);
+  float* feat = reinterpret_cast<float*>(smem_raw + kFBarBytes);
+  float* scratch = feat + fp32_feat_bytes(p.cs) / 4;
+  const size_t ring_off = kFBarBytes + fp32_feat_bytes(p.cs) +
+                          fp32_scratch_bytes(p.nf, p.gcp);
+  FRing ring;
+  ring.data = bars + (uint32_t)ring_off;
+  ring.ptr = reinterpret_cast<const float*>(smem_raw + ring_off);
+  ring.bars = bars;
+  ring.slots = p.slots;
+  ring.bytes = p.slot_bytes;
+  const uint32_t ready = bars + 8 * 2 * kFMaxSlots;  // + 8 i: c_i written
+  const int cx = blockIdx.x & 1, cy = blockIdx.y & 1;
+  // image coordinates of buffer pixel (0, 0)
+  const int oy = blockIdx.y * kFT - (cy ? 1 : 5);
+  const int ox = blockIdx.x * kFT - (cx ? 1 : 5);
+  const size_t img = (size_t)blockIdx.z * p.H * p.W;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ring.slots; ++s) {
+      mbar_init(ring.full(s), 1);
+      mbar_init(ring.empty(s), kFC / 32);
+    }
+    for (int i = 0; i < 4; ++i) mbar_init(ready + 8 * i, 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // every block's barriers exist before any block arrives on them
+  cluster.sync();
+
+  if (threadIdx.x >= kFC) {
+    if (threadIdx.x == kFC) produce_fp32(p, ring);
+    __syncwarp();
+    cluster.sync();  // no block leaves while another reads its memory
+    return;
+  }
+
+  // [z | x] on the whole buffer, zero outside the image
+  const float* x = static_cast<const float*>(p.x);
+  const float* z = static_cast<const float*>(p.z);
+  const int xw = p.nf / 4;
+  for (int idx = threadIdx.x; idx < kFB * kFB * xw; idx += kFC) {
+    const int px = idx / xw, u = idx - px * xw;
+    const int gy = oy + px / kFB, gx = ox + px % kFB;
+    float* dst = feat + px * p.cs + p.zs + 4 * u;
+    if (gy >= 0 && gy < p.H && gx >= 0 && gx < p.W)
+      cp_async16(dst, x + (img + (size_t)gy * p.W + gx) * p.nf + 4 * u);
+    else
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int idx = threadIdx.x; idx < kFB * kFB * p.zs; idx += kFC) {
+    const int px = idx / p.zs, c = idx - px * p.zs;
+    const int gy = oy + px / kFB, gx = ox + px % kFB;
+    float v = 0.f;
+    if (c < p.nz && gy >= 0 && gy < p.H && gx >= 0 && gx < p.W)
+      v = z[(img + (size_t)gy * p.W + gx) * p.nz + c];
+    feat[px * p.cs + c] = v;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  fp32_consumer_sync();
+
+  for (int i = 0; i < 5; ++i) {
+    const int side = kFT + 4 - i, n = i < 4 ? p.gcp : p.nf;
+    const Units u = fp32_units(side * side, n);
+    // the region's first buffer pixel: outer sides grow by 4 - i
+    const int ry0 = cy ? 1 : 1 + i, rx0 = cx ? 1 : 1 + i;
+    if (u.nv == 2)
+      conv_fp32_px<2>(p, feat, scratch, ring, i, u, ry0, rx0, oy, ox, img);
+    else
+      conv_fp32_px<1>(p, feat, scratch, ring, i, u, ry0, rx0, oy, ox, img);
+    if (i == 4) break;
+    // c_i is written in this block: tell the cluster, wait for the others
+    fp32_consumer_sync();
+    if (threadIdx.x == 0) {
+      asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+      for (int rank = 0; rank < 4; ++rank)
+        asm volatile(
+            "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+            ::"r"(mapa(ready + 8 * i, rank))
+            : "memory");
+    }
+    mbar_wait_cluster(ready + 8 * i);
+    // the inner strips of conv i + 1's input window: the inner row and
+    // column, each as long as the window, from the block that computed
+    // them (the corner from the diagonal one)
+    const int in_r = cy ? 0 : kFB - 1, in_c = cx ? 0 : kFB - 1;
+    const int w0 = cy ? 0 : i + 1, wn = kFB - 1 - i;  // window rows
+    const int v0 = cx ? 0 : i + 1;                     // window columns
+    const int slot = p.zs + p.nf + i * p.gcp, words = p.gcp / 4;
+    for (int idx = threadIdx.x; idx < (2 * wn - 1) * words; idx += kFC) {
+      const int e = idx / words, wd = idx - e * words;
+      const int rr = e < wn ? in_r : (cy ? 1 : w0) + e - wn;
+      const int cc = e < wn ? v0 + e : in_c;
+      const int dy = rr == in_r, dx = cc == in_c;  // 1: the other block
+      const int rank = (cx ^ dx) + 2 * (cy ^ dy);
+      const int sy = dy ? (cy ? 12 : -12) : 0, sx = dx ? (cx ? 12 : -12) : 0;
+      const float* src = cluster.map_shared_rank(feat, rank) +
+                         ((rr + sy) * kFB + cc + sx) * p.cs + slot + 4 * wd;
+      *reinterpret_cast<float4*>(feat + (rr * kFB + cc) * p.cs + slot +
+                                 4 * wd) =
+          *reinterpret_cast<const float4*>(src);
+    }
+    fp32_consumer_sync();
+  }
+  cluster.sync();
+}
+
 template <typename T>
-int launch(Params p, int B, cudaStream_t stream) {
-  const size_t smem = rdb_smem<T>(p.cs);
-  // the attribute holds per device: raise it when a launch needs more
-  static size_t allowed[64] = {};
+int set_smem(T* kernel, size_t smem, size_t (&allowed)[64]) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
   if (smem > allowed[dev]) {
-    e = cudaFuncSetAttribute(rdb_kernel<T>,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
     allowed[dev] = smem;
   }
+  return 0;
+}
+
+void set_offsets(Params& p) {
   int wo = 0, bo = 0;
   for (int i = 0; i < 5; ++i) {
     const int k = kZs + p.nf + i * p.gcp, n = i < 4 ? p.gcp : p.nf;
@@ -842,9 +1169,48 @@ int launch(Params p, int B, cudaStream_t stream) {
     wo += 9 * k * n;
     bo += n;
   }
+}
+
+int launch_bf16(Params p, int B, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  const size_t smem = rdb_smem<T>(p.cs);
+  // the attribute holds per device: raise it when a launch needs more
+  static size_t allowed[64] = {};
+  const int e = set_smem(rdb_kernel<T>, smem, allowed);
+  if (e) return e;
+  set_offsets(p);
   dim3 grid((p.W + Tile<T>::w - 1) / Tile<T>::w,
             (p.H + Tile<T>::h - 1) / Tile<T>::h, B);
   rdb_kernel<T><<<grid, Tile<T>::threads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+int launch_fp32(Params p, int B, cudaStream_t stream) {
+  p.zs = fp32_zs(p.nz);
+  const RingShape rs = fp32_ring(p.cs, p.nf, p.gcp);
+  p.slots = rs.slots;
+  p.slot_bytes = rs.bytes;
+  if (p.slots == 0 ||
+      p.cs < p.zs + p.nf + 4 * p.gcp || p.cs % 4 ||
+      fp32_chunk_rows(p.slot_bytes, p.nf > p.gcp ? p.nf : p.gcp) < 4)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 5; ++i) {
+    const int side = kFT + 4 - i, n = i < 4 ? p.gcp : p.nf;
+    const Units u = fp32_units(side * side, n);
+    if (n % (4 * u.nv) || u.px > kFMaxPx) return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = kFBarBytes + fp32_feat_bytes(p.cs) +
+                      fp32_scratch_bytes(p.nf, p.gcp) +
+                      (size_t)p.slots * p.slot_bytes;
+  static size_t allowed[64] = {};
+  const int e = set_smem(rdb_fma_kernel, smem, allowed);
+  if (e) return e;
+  set_offsets(p);
+  // whole clusters of 2 x 2 blocks over the image; blocks outside it
+  // compute zeros and store nothing
+  dim3 grid(2 * ((p.W + 2 * kFT - 1) / (2 * kFT)),
+            2 * ((p.H + 2 * kFT - 1) / (2 * kFT)), B);
+  rdb_fma_kernel<<<grid, kFThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -853,18 +1219,18 @@ int launch(Params p, int B, cudaStream_t stream) {
 extern "C" {
 
 // Dynamic shared memory a launch needs, in bytes, for a pixel stride of
-// `cs` elements.
+// `cs` elements (more than a block has when the widths do not fit).
 size_t exsr_rdb_smem(int nf, int gcp, int cs, int is_bf16) {
-  (void)nf;
-  (void)gcp;
-  return is_bf16 ? rdb_smem<__nv_bfloat16>(cs) : rdb_smem<float>(cs);
+  return is_bf16 ? rdb_smem<__nv_bfloat16>(cs) : fp32_smem(cs, nf, gcp);
 }
 
-// Launches on `stream`; returns cudaGetLastError().  The caller guarantees
-// nf % 16 == 0, 1 <= nz <= 16, gcp % 16 == 0 (bf16: gcp 16 or 32 and nf 16,
-// 32 or 64, the widths wgmma is instantiated for), the packed layouts above,
-// 16-byte aligned pointers, and cs = 16 + nf + 4 gcp + 8 (bf16) or + 1
-// (fp32).  x0 may be null.
+// Launches on `stream`; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for widths the kernel is not built for.  The caller
+// guarantees nf % 16 == 0, 1 <= nz <= 16, gcp % 16 == 0 (bf16: gcp 16 or 32
+// and nf 16, 32 or 64, the widths wgmma is instantiated for), the packed
+// layouts above, 16-byte aligned pointers, and cs = 16 + nf + 4 gcp + 8
+// (bf16) or round_up(nz, 4) + nf + 4 gcp, plus 4 when that is a multiple
+// of 8 (fp32).  x0 may be null.
 int exsr_rdb(const void* x, const void* z, const void* x0, void* out,
              const void* w, const void* bias, int B, int H, int W, int nf,
              int nz, int gcp, int cs, int is_bf16, void* stream) {
@@ -881,8 +1247,9 @@ int exsr_rdb(const void* x, const void* z, const void* x0, void* out,
   p.nz = nz;
   p.gcp = gcp;
   p.cs = cs;
-  if (is_bf16) return launch<__nv_bfloat16>(p, B, (cudaStream_t)stream);
-  return launch<float>(p, B, (cudaStream_t)stream);
+  if (is_bf16) return launch_bf16(p, B, (cudaStream_t)stream);
+  if (B == 0 || H == 0 || W == 0) return 0;
+  return launch_fp32(p, B, (cudaStream_t)stream);
 }
 
 const char* exsr_cuda_error_string(int err) {

@@ -45,12 +45,40 @@
 // the consumers they store the tile with 16-byte stores and release the
 // stage.  Nothing of a tile is read twice from device memory.
 //
-// fp32 (reference checks only; TF32 is off in the port): one block per
-// (image, 16x16 tile), the c3 tile and all of w4 in shared memory, fp32 FMA,
-// 4 pixels x 16 channels per thread.
+// fp32: the default dtype of build_model (the eval_sr CLI), of EditSession
+// (edit_dtype=None with its grouped trunk) and so of the server's SR mode:
+// 69 launches a forward there.  fp32 FMA on the CUDA cores (TF32 stays
+// off).  Bound on the H100 almost equally by operations (144 us at
+// batch 16, LR 128, gc 32, nf 64: 2 * 9 * 32 * 64 flops a pixel at 67
+// TFLOP/s) and by bytes (436 MB at 3.35 TB/s, 130 us), so the bytes have to
+// stream under the FMAs.  A warp's 16-byte shared load delivers 512
+// bytes, four of the SM's 128 a clock, whatever lanes share an address, so
+// a thread should do 4 FMAs per float it loads (fma_conv.cuh): 8 pixels x
+// 8 outputs a thread (8 + 8 loads of 16 bytes per 256 FMAs), and 16 x 16
+// output tiles for 256 consumer threads.  Persistent blocks, one
+// per SM; w4 (73.7 KB at gc 32) staged once per block as [tap][k][64
+// outputs], zero-padded.  Four producer warps bring each tile's c3 halo
+// (18 x 18 pixels) by cp.async and, while the consumers run the conv, sum
+// the four P slices, ((P0 + P1) + P2) + P3 as stage4_plain does, into a
+// shared `part` tile (64 KB); x is prefetched into L2 when the tile starts
+// and read in the epilogue.  Two more c3 stages or a second part tile do
+// not fit beside w4, so each is single: c3 of tile n + 1 is copied while
+// the consumers run tile n's epilogue, its partial sums while they run
+// its conv (full / empty mbarrier pairs).  A first version, 4 pixels x 8
+// outputs a thread with P and x streamed into registers under the taps,
+// took 340 us: 12 loads per 128 FMAs.  The one before it (a block per
+// 16 x 16 tile, all of w4 copied again by each block, the FMAs after the
+// staging) took 671 us.  What bounds this one (~295 us): the conv.  The
+// byte stream alone runs in 161 us (2.7 TB/s; stage4_probe.py --ablate
+// fp32_no_conv), and the FMA loop issues an FFMA about every 2 clocks
+// where it has 1.13 instructions per FFMA: 202 of its 512 FFMAs read
+// their two non-reused operands from one register bank, and ptxas chooses
+// the registers; hoisting the shared loads out of the loop saves only 8 %.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fma_conv.cuh"
 
 namespace {
 
@@ -148,9 +176,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync %0, %1;\n" ::"n"(kBarConsumers), "n"(kConsumers)
+// named barrier of the N consumer threads
+template <int N>
+__device__ __forceinline__ void consumer_sync_n() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kBarConsumers), "n"(N)
                : "memory");
+}
+__device__ __forceinline__ void consumer_sync() {
+  consumer_sync_n<kConsumers>();
 }
 
 __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
@@ -479,132 +512,274 @@ int launch_bf16(const void* c3, const void* const (&p)[4], const void* x,
 
 // ------------------------------------------------------------------ fp32
 
-constexpr int kTile = 16;  // output tile is kTile x kTile pixels
-constexpr int kPx = 4;     // pixels per thread, along W
-constexpr int kCh = 16;    // output channels per thread
-constexpr int kPxGroups = kTile * kTile / kPx;
-constexpr int kMaxThreads = 256;  // nf <= 64
+// Output tile kFT x kFT pixels, its c3 halo tile (kFT + 2)^2; eight
+// consumer warps, four producer warps.
+constexpr int kFT = 16;
+constexpr int kFHaloW = kFT + 2, kFHaloPx = kFHaloW * kFHaloW;
+constexpr int kFConsumers = 256;
+constexpr int kFProducers = 128;
+constexpr int kFThreads = kFConsumers + kFProducers;
+constexpr int kFN = 64;      // w4 columns in shared memory: nf padded to 64
+constexpr int kFPartS = 68;  // part's pixel stride: 4 (mod 8) floats
+constexpr int kFItems = 8;   // P items a producer thread has in flight
 
-__device__ __forceinline__ void load16(const float* p, float (&v)[kCh]) {
-  const float4* q = reinterpret_cast<const float4*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 a = q[i];
-    v[4 * i] = a.x;
-    v[4 * i + 1] = a.y;
-    v[4 * i + 2] = a.z;
-    v[4 * i + 3] = a.w;
+// c3's channels padded to a multiple of 4 (zeros; so is w4's K), and the
+// pixel stride in floats: 4 (mod 8), so that 8 consecutive pixels' float4s
+// fall in distinct banks (fma_conv.cuh).
+__host__ __device__ constexpr int fma_k(int gc) { return (gc + 3) / 4 * 4; }
+__host__ __device__ constexpr int fma_stride(int gc) {
+  return fma_k(gc) % 8 == 4 ? fma_k(gc) : fma_k(gc) + 4;
+}
+__host__ __device__ constexpr int fma_c3_bytes(int gc) {
+  return kFHaloPx * fma_stride(gc) * 4;
+}
+__host__ __device__ constexpr int fma_w4_bytes(int gc) {
+  return 9 * fma_k(gc) * kFN * 4;
+}
+constexpr int kFPartBytes = kFT * kFT * kFPartS * 4;
+size_t fma_smem(int gc) {
+  return kBarBytes + (size_t)fma_w4_bytes(gc) + fma_c3_bytes(gc) +
+         kFPartBytes;
+}
+
+struct FArgs {
+  const float* c3;
+  const float* p[4];
+  const float* x;
+  const float* w4;
+  const float* b4;
+  float* out;
+  int H, W, gc, nf, tiles_x, tiles_y, tiles;
+  int cp[4];
+};
+
+__device__ __forceinline__ void cp8(uint32_t dst, const void* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void prefetch_l2(const float* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// Tile t's origin and image.
+struct FTile {
+  int y0, x0;
+  size_t img;
+  __device__ FTile(const FArgs& a, int t) {
+    const int per_img = a.tiles_y * a.tiles_x;
+    const int b = t / per_img, r = t - b * per_img;
+    const int ty = r / a.tiles_x;
+    y0 = ty * kFT;
+    x0 = (r - ty * a.tiles_x) * kFT;
+    img = (size_t)b * a.H * a.W;
+  }
+};
+
+// The producers' share of tile t's c3 halo into `st` (shared address):
+// 16-byte copies, or 8-byte ones when gc is not a multiple of 4 (gc is
+// even); zeros outside the image and for k >= gc.
+__device__ __forceinline__ void fma_issue_c3(const FArgs& a, uint32_t st,
+                                             const FTile& f, int tid) {
+  const int ps = 4 * fma_stride(a.gc);
+  const int wide = a.gc % 4 == 0, wbytes = wide ? 16 : 8;
+  const int wpp = fma_k(a.gc) * 4 / wbytes;  // words a pixel
+  for (int i = tid; i < kFHaloPx * wpp; i += kFProducers) {
+    const int hp = i / wpp, w = i - hp * wpp;
+    const int hy = hp / kFHaloW;
+    const int gy = f.y0 - 1 + hy, gx = f.x0 - 1 + hp - hy * kFHaloW;
+    const int k = w * wbytes / 4;
+    const bool ok = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && k < a.gc;
+    const float* src =
+        ok ? a.c3 + (f.img + (size_t)gy * a.W + gx) * a.gc + k : a.c3;
+    if (wide)
+      cp16(st + hp * ps + 16 * w, src, ok ? 16 : 0);
+    else
+      cp8(st + hp * ps + 8 * w, src, ok ? 8 : 0);
   }
 }
 
-__device__ __forceinline__ void store16(float* p, const float (&v)[kCh]) {
-  float4* q = reinterpret_cast<float4*>(p);
+// The producers' share of tile t's partial sum ((P0 + P1) + P2) + P3 on
+// the nf channels into `part` ([pixel][kFPartS]), kFItems float4s of each
+// slice in flight a thread; pixels outside the image are left as they are.
+__device__ __forceinline__ void fma_fill_part(const FArgs& a, float* part,
+                                              const FTile& f, int tid) {
+  const int quads = a.nf / 4, items = kFT * kFT * quads;
+  for (int i0 = tid; i0 < items; i0 += kFItems * kFProducers) {
+    float4 v[kFItems][4];
+    size_t pix[kFItems];
+    bool ok[kFItems];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    q[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
-}
-
-// c3 pixel stride in shared memory: gc plus one word, so that the pixels a
-// warp reads fall in distinct banks
-__host__ __device__ constexpr int fma_stride(int gc) { return gc + 1; }
-
-size_t fma_smem(int gc, int nf) {
-  return (size_t)(9 * gc * nf + (kTile + 2) * (kTile + 2) * fma_stride(gc)) *
-         sizeof(float);
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
-stage4_fma_kernel(const float* __restrict__ c3, const float* __restrict__ p0,
-           const float* __restrict__ p1, const float* __restrict__ p2,
-           const float* __restrict__ p3, const float* __restrict__ x,
-           const float* __restrict__ w4, const float* __restrict__ b4,
-           float* __restrict__ out, int H, int W, int gc, int nf, int cp0,
-           int cp1, int cp2, int cp3) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* s_w = reinterpret_cast<float*>(smem_raw);  // [3][3][gc][nf]
-  float* s_c = s_w + 9 * gc * nf;                   // [kTile+2]^2 [ps]
-  const int ps = fma_stride(gc);
-  const int tw = kTile + 2;
-  const int y0 = blockIdx.y * kTile, x0 = blockIdx.x * kTile;
-  const size_t img = (size_t)blockIdx.z * H * W;
-
-  {
-    const int n16 = 9 * gc * nf / 4;
-    const float4* src = reinterpret_cast<const float4*>(w4);
-    float4* dst = reinterpret_cast<float4*>(s_w);
-    for (int i = threadIdx.x; i < n16; i += blockDim.x) dst[i] = src[i];
+    for (int j = 0; j < kFItems; ++j) {
+      const int i = i0 + j * kFProducers, m = i / quads;
+      const int gy = f.y0 + m / kFT, gx = f.x0 + m % kFT;
+      ok[j] = i < items && gy < a.H && gx < a.W;
+      pix[j] = ok[j] ? f.img + (size_t)gy * a.W + gx : 0;
+      const int c = 4 * (i - m * quads);
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        v[j][g] = ok[j] ? __ldcs(reinterpret_cast<const float4*>(
+                              a.p[g] + pix[j] * a.cp[g] + c))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < kFItems; ++j) {
+      const int i = i0 + j * kFProducers, m = i / quads;
+      if (!ok[j]) continue;
+      float4 s = v[j][0];
+#pragma unroll
+      for (int g = 1; g < 4; ++g) {
+        s.x += v[j][g].x;
+        s.y += v[j][g].y;
+        s.z += v[j][g].z;
+        s.w += v[j][g].w;
+      }
+      *reinterpret_cast<float4*>(part + m * kFPartS + 4 * (i - m * quads)) =
+          s;
+    }
   }
-  for (int idx = threadIdx.x; idx < tw * tw * gc; idx += blockDim.x) {
-    const int p = idx / gc;
-    const int k = idx - p * gc;
-    const int ty = p / tw;
-    const int gy = y0 - 1 + ty, gx = x0 - 1 + (p - ty * tw);
-    float v = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = c3[(img + (size_t)gy * W + gx) * gc + k];
-    s_c[p * ps + k] = v;
+}
+
+__device__ __forceinline__ float4 ld_stream(const float* p, bool ok) {
+  return ok ? __ldcs(reinterpret_cast<const float4*>(p))
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// One output: ((conv + b4) + partial) * 0.2 + x, each op rounded in
+// stage4_plain's order (no contraction into an FMA).
+__device__ __forceinline__ float fma_out(float acc, float b, float part,
+                                         float x) {
+  return __fadd_rn(__fmul_rn(__fadd_rn(__fadd_rn(acc, b), part), 0.2f), x);
+}
+
+__global__ void __launch_bounds__(kFThreads, 1)
+    stage4_fma_kernel(const FArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* w_s = reinterpret_cast<float*>(smem + kBarBytes);  // [9][kp][64]
+  float* c3_s = reinterpret_cast<float*>(smem + kBarBytes +
+                                         fma_w4_bytes(a.gc));
+  float* part = c3_s + fma_c3_bytes(a.gc) / 4;
+  const int kp = fma_k(a.gc), ps = fma_stride(a.gc);
+  // c3 full / empty, part full / empty
+  const uint32_t bars = smem_addr(smem);
+  const uint32_t c3_full = bars, c3_empty = bars + 8;
+  const uint32_t part_full = bars + 16, part_empty = bars + 24;
+  if (threadIdx.x == 0) {
+    mbar_init(c3_full, kFProducers);
+    mbar_init(c3_empty, kFConsumers / 32);
+    mbar_init(part_full, kFProducers);
+    mbar_init(part_empty, kFConsumers / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int groups = nf / kCh;
-  const int cg = threadIdx.x % groups;
-  const int pg = threadIdx.x / groups;
-  const int r = pg / (kTile / kPx);
-  const int c0 = (pg % (kTile / kPx)) * kPx;
-  float acc[kPx][kCh] = {};
-  for (int ky = 0; ky < 3; ++ky) {
-    for (int kx = 0; kx < 3; ++kx) {
-      const float* wrow = s_w + (ky * 3 + kx) * gc * nf + cg * kCh;
-      const float* crow = s_c + ((r + ky) * tw + c0 + kx) * ps;
-      for (int k = 0; k < gc; k += 2) {
-        float a0[kPx], a1[kPx];
-#pragma unroll
-        for (int i = 0; i < kPx; ++i) {
-          a0[i] = crow[i * ps + k];
-          a1[i] = crow[i * ps + k + 1];
-        }
-        float w0[kCh], w1[kCh];
-        load16(wrow + k * nf, w0);
-        load16(wrow + (k + 1) * nf, w1);
-#pragma unroll
-        for (int i = 0; i < kPx; ++i) {
-#pragma unroll
-          for (int j = 0; j < kCh; ++j) {
-            acc[i][j] = fmaf(a0[i], w0[j], acc[i][j]);
-            acc[i][j] = fmaf(a1[i], w1[j], acc[i][j]);
-          }
-        }
-      }
+  if (threadIdx.x >= kFConsumers) {
+    // producers: tile n's c3 once the consumers' conv of tile n - 1 is
+    // done, its partial sums once their epilogue of n - 1 is
+    const int tid = threadIdx.x - kFConsumers;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x, ++it) {
+      const FTile f(a, tile);
+      if (it > 0) mbar_wait(c3_empty, (it - 1) & 1);
+      fma_issue_c3(a, smem_addr(c3_s), f, tid);
+      cp_arrive(c3_full);
+      if (it > 0) mbar_wait(part_empty, (it - 1) & 1);
+      fma_fill_part(a, part, f, tid);
+      mbar_arrive(part_full);
     }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
   }
 
-  const int ch = cg * kCh;
-  const int gy = y0 + r;
-  if (gy >= H) return;
+  // w4 once per block: [tap][k][n] as HWIO, zeros for k >= gc, n >= nf;
+  // all of it in flight at once
+  for (int i = threadIdx.x; i < 9 * kp * (kFN / 4); i += kFConsumers) {
+    const int n = 4 * (i % (kFN / 4)), tk = i / (kFN / 4);
+    const int k = tk % kp, tap = tk / kp;
+    const bool ok = k < a.gc && n < a.nf;
+    cp16(smem_addr(w_s) + 16 * i,
+         ok ? a.w4 + (size_t)(tap * a.gc + k) * a.nf + n : a.w4,
+         ok ? 16 : 0);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  consumer_sync_n<kFConsumers>();
+
+  // lane (q, cg) of warp w: pixel group g = 4 w + q, its pixels 32 j + g
+  // (rows 2 j + g / 16, column g % 16: a warp's lanes read 4 consecutive
+  // pixels), output channels [4 cg, 4 cg + 4) and [32 + 4 cg, 32 + 4 cg + 4)
+  const int lane = threadIdx.x & 31, cg = lane & 7;
+  const int g = 4 * (threadIdx.x >> 5) + (lane >> 3);
+  const int row0 = g / kFT, col = g % kFT;
+  const int ch[2] = {4 * cg, 32 + 4 * cg};
+  const bool chok[2] = {ch[0] < a.nf, ch[1] < a.nf};
+  float bias[2][4];
 #pragma unroll
-  for (int i = 0; i < kPx; ++i) {
-    const int gx = x0 + c0 + i;
-    if (gx >= W) break;
-    const size_t pix = img + (size_t)gy * W + gx;
-    float part[kCh], t[kCh], o[kCh];
-    load16(p0 + pix * cp0 + ch, part);
-    load16(p1 + pix * cp1 + ch, t);
+  for (int v = 0; v < 2; ++v)
 #pragma unroll
-    for (int j = 0; j < kCh; ++j) part[j] += t[j];
-    load16(p2 + pix * cp2 + ch, t);
+    for (int e = 0; e < 4; ++e) bias[v][e] = chok[v] ? a.b4[ch[v] + e] : 0.f;
+
+  int it = 0;
+  for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x, ++it) {
+    const FTile f(a, tile);
+    const int gx = f.x0 + col;
+    // x into L2 now, for the epilogue
 #pragma unroll
-    for (int j = 0; j < kCh; ++j) part[j] += t[j];
-    load16(p3 + pix * cp3 + ch, t);
+    for (int j = 0; j < 8; ++j) {
+      const int gy = f.y0 + 2 * j + row0;
+      if (gy < a.H && gx < a.W)
 #pragma unroll
-    for (int j = 0; j < kCh; ++j) part[j] += t[j];
-    load16(x + pix * nf + ch, t);
-#pragma unroll
-    for (int j = 0; j < kCh; ++j) {
-      const float conv = acc[i][j] + b4[ch + j];
-      const float v = (conv + part[j]) * 0.2f;
-      o[j] = v + t[j];
+        for (int v = 0; v < 2; ++v)
+          if (chok[v])
+            prefetch_l2(a.x + (f.img + (size_t)gy * a.W + gx) * a.nf +
+                        ch[v]);
     }
-    store16(out + pix * nf + ch, o);
+    mbar_wait(c3_full, it & 1);
+    float4 acc[8][2] = {};
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const float* at =
+          c3_s + ((row0 + tap / 3) * kFHaloW + col + tap % 3) * ps;
+      const float* ap[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) ap[j] = at + j * 2 * kFHaloW * ps;
+      fma_conv::mac<8, 2>(acc, ap, w_s + tap * kp * kFN + ch[0], kFN, 32,
+                          kp);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(c3_empty);
+
+    // the epilogue: every x load in flight at once, then the partial sums
+    bool ok[8];
+    size_t pix[8];
+    float4 xs[8][2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int gy = f.y0 + 2 * j + row0;
+      ok[j] = gy < a.H && gx < a.W;
+      pix[j] = ok[j] ? f.img + (size_t)gy * a.W + gx : 0;
+#pragma unroll
+      for (int v = 0; v < 2; ++v)
+        xs[j][v] = ld_stream(a.x + pix[j] * a.nf + ch[v], ok[j] && chok[v]);
+    }
+    mbar_wait(part_full, it & 1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        if (!ok[j] || !chok[v]) continue;
+        const float4 pp = *reinterpret_cast<const float4*>(
+            part + (32 * j + g) * kFPartS + ch[v]);
+        const float4 xv = xs[j][v];
+        const float4 c = fma_conv::channels(acc[j][v]);
+        const float4 o = make_float4(fma_out(c.x, bias[v][0], pp.x, xv.x),
+                                     fma_out(c.y, bias[v][1], pp.y, xv.y),
+                                     fma_out(c.z, bias[v][2], pp.z, xv.z),
+                                     fma_out(c.w, bias[v][3], pp.w, xv.w));
+        __stcs(reinterpret_cast<float4*>(a.out + pix[j] * a.nf + ch[v]), o);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(part_empty);
   }
 }
 
@@ -612,24 +787,48 @@ int launch_fp32(const void* c3, const void* const (&p)[4], const void* x,
                 const void* w4, const void* b4, void* out, int B, int H,
                 int W, int gc, int nf, const int (&cp)[4],
                 cudaStream_t stream) {
-  const size_t smem = fma_smem(gc, nf);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        stage4_fma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  FArgs a;
+  a.c3 = static_cast<const float*>(c3);
+  for (int g = 0; g < 4; ++g) {
+    a.p[g] = static_cast<const float*>(p[g]);
+    a.cp[g] = cp[g];
+  }
+  a.x = static_cast<const float*>(x);
+  a.w4 = static_cast<const float*>(w4);
+  a.b4 = static_cast<const float*>(b4);
+  a.out = static_cast<float*>(out);
+  a.H = H;
+  a.W = W;
+  a.gc = gc;
+  a.nf = nf;
+  a.tiles_x = (W + kFT - 1) / kFT;
+  a.tiles_y = (H + kFT - 1) / kFT;
+  a.tiles = B * a.tiles_x * a.tiles_y;
+  const size_t smem = fma_smem(gc);
+  if (smem > (size_t)kMaxSmem || nf > kFN) return (int)cudaErrorInvalidValue;
+  if (a.tiles == 0) return 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  static int sms[64] = {};
+  static size_t allowed[64] = {};
+  if (sms[dev] == 0) {
+    e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
     if (e != cudaSuccess) return (int)e;
   }
-  if (B == 0 || H == 0 || W == 0) return 0;
-  dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, B);
-  stage4_fma_kernel<<<grid, kPxGroups * (nf / kCh), smem, stream>>>(
-      (const float*)c3, (const float*)p[0], (const float*)p[1],
-      (const float*)p[2], (const float*)p[3], (const float*)x,
-      (const float*)w4, (const float*)b4, (float*)out, H, W, gc, nf, cp[0],
-      cp[1], cp[2], cp[3]);
+  if (smem > allowed[dev]) {
+    e = cudaFuncSetAttribute(stage4_fma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    allowed[dev] = smem;
+  }
+  const int grid = a.tiles < sms[dev] ? a.tiles : sms[dev];
+  stage4_fma_kernel<<<grid, kFThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
-
 }  // namespace
 
 extern "C" {
@@ -637,7 +836,7 @@ extern "C" {
 // Dynamic shared memory a launch needs, in bytes (bf16: with the ring
 // stages that fit, or one stage when none does).
 size_t exsr_stage4_smem(int gc, int nf, int is_bf16) {
-  if (!is_bf16) return fma_smem(gc, nf);
+  if (!is_bf16) return fma_smem(gc);
   const int gcp = (gc + 15) / 16 * 16, stages = ring_stages(gcp, nf);
   return mma_smem(gcp, nf, stages ? stages : 1);
 }

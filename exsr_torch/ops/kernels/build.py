@@ -51,9 +51,11 @@ class BuildError(RuntimeError):
 
 def source_library(src: Path, build_dir: Path, flags) -> Path:
     """Where ``src`` built with ``flags`` lives in ``build_dir``: the name
-    carries a hash of the source and the flags."""
-    digest = hashlib.sha256(src.read_bytes()
-                            + ' '.join(flags).encode()).hexdigest()
+    carries a hash of the source, the headers beside it (``*.cuh``, which
+    a kernel source may include) and the flags."""
+    text = src.read_bytes() + b''.join(
+        h.read_bytes() for h in sorted(src.parent.glob('*.cuh')))
+    digest = hashlib.sha256(text + ' '.join(flags).encode()).hexdigest()
     return build_dir / f'{src.stem}-{digest[:16]}.so'
 
 
@@ -147,6 +149,44 @@ def substitute(name: str, lib: ctypes.CDLL):
             _loaded.pop(name, None)
         else:
             _loaded[name] = saved
+
+
+def build_copy(source: str, subs, directory, name: str,
+               header_subs=(), header_dir=None) -> tuple:
+    """Compile a copy of a kernel source into ``directory``, for a probe:
+    ``source`` (the text of a ``.cu`` file) with the exact text
+    substitutions ``subs`` applied, beside copies of the headers
+    (``*.cuh``) of ``header_dir`` if it has any, else of ``csrc``, with
+    ``header_subs`` applied (a quoted include finds them first).  Each
+    substitution must match exactly once in its file, or this raises.
+    Returns the loaded library (signatures unset) and the compiler's
+    output."""
+    def apply(text, pairs, where):
+        for old, new in pairs:
+            if text.count(old) != 1:
+                raise RuntimeError(f'{name}: pattern matches '
+                                   f'{text.count(old)} times in {where}: '
+                                   f'{old!r}')
+            text = text.replace(old, new)
+        return text
+    directory = Path(directory)
+    found = sorted(Path(header_dir).glob('*.cuh')) if header_dir else []
+    headers = {h.name: h.read_text()
+               for h in found or sorted(CSRC.glob('*.cuh'))}
+    left = list(header_subs)
+    for hname, text in headers.items():
+        mine = [(o, n) for o, n in left if o in text]
+        left = [x for x in left if x not in mine]
+        (directory / hname).write_text(apply(text, mine, hname))
+    if left:
+        raise RuntimeError(f'{name}: header patterns match nowhere: {left!r}')
+    cu, so = directory / f'{name}.cu', directory / f'{name}.so'
+    cu.write_text(apply(source, subs, f'{name}.cu'))
+    done = subprocess.run([nvcc_path(), *NVCC_FLAGS, '-o', str(so), str(cu)],
+                          capture_output=True, text=True)
+    if done.returncode:
+        raise BuildError(f'{name}: nvcc failed\n{done.stdout}{done.stderr}')
+    return ctypes.CDLL(str(so)), done.stdout + done.stderr
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

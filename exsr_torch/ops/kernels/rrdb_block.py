@@ -36,11 +36,16 @@ each conv on the tile grown by the halo the later convs need.  In bf16 the
 products run on the tensor cores with ``wgmma``: two consumer warpgroups
 read the pixels with ``ldmatrix`` and the weights through a shared-memory
 descriptor from a ring that a producer thread fills with bulk copies, slot
-by slot under ``mbarrier``s.  In fp32 (reference checks only) they run on
-fp32 FMA.  The bf16 kernel is instantiated for ``gc <= 32`` and ``nf`` 16,
-32 or 64; :func:`rdb` raises ``NotImplementedError`` for other widths on
-CUDA.  The wrapper runs :func:`rdb_plain` for CPU tensors and launches the
-kernel for CUDA tensors; there is no backward.
+by slot under ``mbarrier``s.  In fp32 (``RRDBNet(fused_trunk=True)``'s
+default dtype) they run on fp32 FMA (TF32 stays off) in a 2 x 2
+thread-block cluster: each block computes an 8 x 8 tile and the cluster's
+outer halo, and takes the 1-pixel strip of each ``c_i`` its inner sides
+need from the other blocks' shared memory, so the halo is recomputed only
+on the cluster's edge (:func:`executed_flops_fp32`).  The bf16 kernel is
+instantiated for ``gc <= 32`` and ``nf`` 16, 32 or 64; :func:`rdb` raises
+``NotImplementedError`` for other widths on CUDA.  The wrapper runs
+:func:`rdb_plain` for CPU tensors and launches the kernel for CUDA
+tensors; there is no backward.
 """
 from __future__ import annotations
 
@@ -235,7 +240,8 @@ def require_kernel_widths(w: RdbWeights) -> None:
     """Raise ``NotImplementedError`` unless the CUDA kernel is built for
     these weights' widths: nf a multiple of 16 and 1 <= nz <= 16; in bf16
     also gc <= 32 (convs 0..3 write 16 or 32 padded outputs) and nf 16, 32
-    or 64 (conv 4), the widths ``wgmma`` is instantiated for."""
+    or 64 (conv 4), the widths ``wgmma`` is instantiated for; in fp32 a
+    thread's tile of every conv at most 9 pixels (:func:`fp32_units`)."""
     if w.nf % 16 or not 1 <= w.nz <= Z_SLOTS:
         raise NotImplementedError(
             f'the CUDA kernel takes nf a multiple of 16 and 1 <= nz <= '
@@ -245,9 +251,30 @@ def require_kernel_widths(w: RdbWeights) -> None:
         raise NotImplementedError(
             f'the bf16 CUDA kernel is built for gc <= {BF16_GC_WIDTHS[-1]} '
             f'and nf in {BF16_NF_WIDTHS}, got nf={w.nf} gc={w.gc}')
+    if w.dtype == torch.float32 and any(
+            fp32_units(i, w.nf, w.gcp)[3] > FP32_MAX_PX for i in range(5)):
+        raise NotImplementedError(
+            f'the fp32 CUDA kernel holds at most {FP32_MAX_PX} pixels a '
+            f'thread, too few for nf={w.nf} gc={w.gc}')
+
+
+def pixel_stride(nf: int, nz: int, gcp: int, is_bf16: bool) -> int:
+    """The kernel's pixel stride in shared memory, in elements: the
+    channel slots plus bank-conflict padding.  bf16: z in 16 slots, then 8
+    (an odd number of 16-byte words); fp32: z in round_up(nz, 4) slots,
+    then 4 when the slots make a multiple of 8 floats (4 mod 8: eight
+    consecutive pixels' float4s fall in distinct banks)."""
+    if is_bf16:
+        return Z_SLOTS + nf + 4 * gcp + 8
+    cs = -(-nz // 4) * 4 + nf + 4 * gcp
+    return cs + 4 if cs % 8 == 0 else cs
 
 
 BF16_TILE = (8, 16)  # the bf16 kernel's output tile (rdb.cu, Tile)
+# the fp32 kernel (rdb.cu, rdb_fma_kernel): a block's 8 x 8 output tile in
+# a 2 x 2 cluster, the threads of each of its two halves (each sums half
+# of every weight chunk's rows), the pixels a thread holds at most
+FP32_TILE, FP32_CLUSTER, FP32_THREADS, FP32_MAX_PX = 8, 2, 128, 9
 
 
 def executed_flops_bf16(b: int, h: int, wd: int, nf: int, gc: int) -> int:
@@ -267,6 +294,40 @@ def executed_flops_bf16(b: int, h: int, wd: int, nf: int, gc: int) -> int:
     return tiles * per_tile
 
 
+def fp32_units(i: int, nf: int, gcp: int) -> tuple:
+    """The fp32 kernel's thread mapping for conv i in each half of its
+    consumer threads (rdb.cu, fp32_units): ``(nv, cgs, pgs, px)``: a
+    thread holds ``4 nv`` outputs (nv 2 when the conv writes more than 32)
+    of one of ``cgs`` channel groups and ``px`` pixels of one of ``pgs``
+    pixel groups, over the conv's region (the block's tile grown by 4 - i
+    pixels on its two outer sides)."""
+    m = (FP32_TILE + 4 - i) ** 2
+    n = gcp if i < 4 else nf
+    nv = 2 if n > 32 else 1
+    cgs = n // (4 * nv)
+    pgs = FP32_THREADS // cgs
+    return nv, cgs, pgs, -(-m // pgs)
+
+
+def executed_flops_fp32(b: int, h: int, wd: int, nf: int, gc: int,
+                        nz: int = 3) -> int:
+    """Flops the fp32 CUDA kernel executes on FMA for one call, everything
+    it recomputes or pads included: the grid is whole 2 x 2 clusters of
+    8 x 8 tiles (blocks past the image's edge run too); per block, conv i
+    runs ``pgs * px`` pixels (its region, the last group's duplicates
+    included) x its N_i outputs over K_i = round_up(nz, 4) + nf + i * gcp
+    input slots, nine taps each."""
+    gcp = -(-gc // 16) * 16
+    side = FP32_TILE * FP32_CLUSTER
+    blocks = b * FP32_CLUSTER ** 2 * -(-h // side) * -(-wd // side)
+    per_block = 0
+    for i in range(5):
+        _, _, pgs, px = fp32_units(i, nf, gcp)
+        per_block += 2 * 9 * pgs * px * (-(-nz // 4) * 4 + nf + i * gcp) \
+            * (gcp if i < 4 else nf)
+    return blocks * per_block
+
+
 def rdb(x, z, w: RdbWeights, x0=None):
     """One residual dense block; with ``x0``, also the outer RRDB residual
     ``out * dtype(0.2) + x0``.  A CPU tensor goes to :func:`rdb_plain`; a
@@ -282,8 +343,7 @@ def rdb(x, z, w: RdbWeights, x0=None):
     b, h, wd, nf = x.shape
     require_kernel_widths(w)
     is_bf16 = int(x.dtype == torch.bfloat16)
-    # pixel stride in shared memory: bank-conflict padding (see rdb.cu)
-    cs = Z_SLOTS + nf + 4 * w.gcp + (8 if is_bf16 else 1)
+    cs = pixel_stride(nf, w.nz, w.gcp, is_bf16)
     lib = build.load('rdb', _SIGNATURES)
     smem = lib.exsr_rdb_smem(nf, w.gcp, cs, is_bf16)
     if smem > SMEM_LIMIT:

@@ -12,7 +12,7 @@ only the leading ``nf`` channels are read (s4-first packing,
 fp32 accumulation; the scaled sum is cast to the dtype before ``x`` is
 added, as ``stage4.py:72-78`` does.
 
-On the H100 the function is bound by bytes (832 bytes per pixel in bf16
+On the H100 the bf16 function is bound by bytes (832 bytes per pixel
 against ~44 flops per byte).  The bf16 CUDA kernel
 (``exsr_torch/csrc/stage4.cu``) runs one persistent block per SM over 8 x 8
 output tiles: producer warps bring each tile's inputs (``c3`` with its
@@ -20,8 +20,13 @@ halo, the four nf-wide partial slices, ``x``) into a two-stage shared-memory
 ring by ``cp.async`` while consumer warps run the previous tile's conv on
 the tensor cores (``mma.sync``, fragments by ``ldmatrix``, ``w4`` staged
 once per block) and its epilogue.  Every input is read once and ``out``
-written once.  The fp32 kernel keeps an fp32 FMA conv (TF32 is off in the
-port).
+written once.  fp32 (``build_model``'s default, so every ``eval_sr``
+forward, edit step and server edit: 69 launches a forward) runs the conv
+on fp32 FMA (TF32 stays off) in persistent blocks over 16 x 16 tiles:
+``w4`` staged once per block, producer warps copying ``c3``'s halo and
+summing the four P slices into shared memory while the consumers run the
+conv (8 pixels x 8 outputs a thread, ``exsr_torch/csrc/fma_conv.cuh``),
+``x`` read in the epilogue.
 
 Gradients.  :func:`stage4` is a ``torch.autograd.Function`` on both
 devices.  Its backward for ``g = d loss / d out`` is ``x_bar = g``, ``s =

@@ -79,21 +79,10 @@ VARIANTS = (
 
 
 def build_copy(source, subs, directory, name):
-    """Compile ``source`` with ``subs`` applied; returns the loaded library
-    with the wrapper's signatures of the functions it exports."""
-    for old, new in subs:
-        if source.count(old) != 1:
-            raise RuntimeError(f'{name}: pattern matches '
-                               f'{source.count(old)} times: {old!r}')
-        source = source.replace(old, new)
-    cu, so = (os.path.join(directory, name + ext) for ext in ('.cu', '.so'))
-    with open(cu, 'w') as f:
-        f.write(source)
-    done = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, '-o', so,
-                           cu], capture_output=True, text=True)
-    if done.returncode:
-        raise RuntimeError(f'{name}: nvcc failed\n{done.stdout}{done.stderr}')
-    lib = ctypes.CDLL(so)
+    """Compile ``source`` with ``subs`` applied (``build.build_copy``);
+    returns the loaded library with the wrapper's signatures of the
+    functions it exports."""
+    lib, _ = build.build_copy(source, subs, directory, name)
     sigs = dict(K._SIGNATURES, exsr_cuda_error_string=([ctypes.c_int],
                                                        ctypes.c_char_p))
     for fn, (argtypes, restype) in sigs.items():

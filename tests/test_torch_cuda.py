@@ -178,11 +178,13 @@ def test_polyphase_kernels_take_even_taps(cuda, k, sf, pre, b, h, w):
 @pytest.mark.parametrize('gc', [8, 16, 32])
 @pytest.mark.parametrize('nf', [16, 48, 64])
 @pytest.mark.parametrize('b,h,w', [(2, 40, 36), (2, 7, 19), (3, 1, 1),
-                                   (3, 3, 130), (3, 129, 17)])
+                                   (3, 3, 130), (3, 129, 17), (1, 40, 40),
+                                   (1, 56, 56), (1, 64, 64)])
 def test_stage4_kernel_matches_plain(cuda, dtype, gc, nf, b, h, w):
     """fp32 to 1e-5; bf16 to one bf16 ulp (2^-7 relative), where fp32
     summation order moves the scaled sum across a rounding boundary.
-    Shapes that do not divide the 8 x 8 tile, one pixel, three images.
+    Shapes that do not divide the 8 x 8 (bf16) or 8 x 16 (fp32) tile, one
+    pixel, three images, the edit crops at batch 1.
     The bf16 kernel runs three times on the same inputs and must repeat
     itself bit for bit: a missing barrier or wait shows on some runs only.
     """
@@ -249,10 +251,13 @@ def assert_rdb_close(out, ref):
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('nf,gc', [(16, 8), (32, 16), (64, 32)])
 @pytest.mark.parametrize('b,h,w', [(2, 7, 19), (2, 40, 36), (3, 9, 70),
-                                   (2, 3, 5)])
+                                   (2, 3, 5), (1, 17, 33), (1, 40, 40),
+                                   (1, 56, 56), (1, 64, 64)])
 def test_rdb_kernel_matches_plain(cuda, dtype, nf, gc, b, h, w):
-    """Shapes that do not divide the 8 x 16 tile, one wider than a tile
-    with a ragged edge and three images, one smaller than a tile.  The
+    """Shapes that do not divide the 8 x 16 tile (bf16) or the 16 x 16 of
+    a 2 x 2 cluster of 8 x 8 tiles (fp32), one wider than a tile with a
+    ragged edge and three images, one smaller than a tile, one a pixel past
+    whole clusters, the edit crops at batch 1.  The
     bf16 kernel runs three times on the same inputs and must repeat itself
     bit for bit: a missing fence or barrier shows on some runs only."""
     gen = torch.Generator(device=cuda).manual_seed(5)

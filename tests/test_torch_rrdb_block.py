@@ -318,3 +318,24 @@ def test_executed_flops_counts_halo_padding_and_ragged_units():
     useful = 2 * 9 * 128 * sum((3 + 64 + 32 * i) * (32 if i < 4 else 64)
                                for i in range(5))
     assert 1.7 < per_tile / useful < 1.8
+
+
+def test_executed_flops_fp32_counts_clusters_halo_and_ragged_groups():
+    """nf 64, gc 32, nz 3 on one 2 x 2 cluster of 8 x 8 tiles: per block,
+    conv i runs 16 pixel groups of 9, 8, 7, 6 and 4 pixels (its region of
+    12^2, 11^2, 10^2, 9^2 and 8^2 pixels, the last group padded) over
+    K = 4 + 64 + 32 i slots and 32 (conv 4: 64) outputs."""
+    per_block = 2 * 9 * 16 * (9 * 68 * 32 + 8 * 100 * 32 + 7 * 132 * 32
+                              + 6 * 164 * 32 + 4 * 196 * 64)
+    assert K.executed_flops_fp32(1, 16, 16, 64, 32) == 4 * per_block
+    # a ragged image runs whole clusters: 17 x 9 two of them, and a 3 x 5
+    # image one, whose blocks outside the image run too
+    assert K.executed_flops_fp32(2, 17, 9, 64, 32) == 2 * 2 * 4 * per_block
+    assert K.executed_flops_fp32(1, 3, 5, 64, 32) == 4 * per_block
+    # gc pads to 16 slots, z to 4
+    assert K.executed_flops_fp32(1, 16, 16, 64, 24) == 4 * per_block
+    assert K.executed_flops_fp32(1, 16, 16, 64, 32, nz=4) == 4 * per_block
+    assert K.pixel_stride(64, 3, 32, False) == 4 + 64 + 4 * 32
+    useful = 2 * 9 * 256 * sum((3 + 64 + 32 * i) * (32 if i < 4 else 64)
+                               for i in range(5))
+    assert 1.4 < 4 * per_block / useful < 1.5
