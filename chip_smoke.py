@@ -221,7 +221,9 @@ Phases, one JSON line each (``t_s``: seconds since the script started):
    step, per rank and for one process.
 
 Phase 3 also checks and times ``sepfilter_taps``, the CEM filter's adjoint
-kernel, at the edit shape and at the main path's batch-16 shapes; the
+kernel, at the edit shape and at the main path's batch-16 shapes, beside
+its library chain (autograd of the forward map written from library
+calls: ``library_chain_ms``); the
 kernels line gives each CEM kernel's training launches and times beside
 its serving ones (``train``), the server's launches per request and
 times at its edit's crop (``web``), its launches on each of phase 26's
@@ -3347,7 +3349,10 @@ def train_rows(records, kern, taps) -> dict:
 def taps_row(kern, edit_runs):
     """The CEM filter's adjoint kernel on the edit path: its three launches
     of one backward (U^T, E^T, D^T) at the window-32 crop, summed; the
-    launches are those of the fp32 window-32 edit run."""
+    launches are those of the fp32 window-32 edit run.  Beside it, each
+    adjoint at the edit crop and at the main path's shapes (``parts``),
+    and the library chain (autograd of the forward map written from
+    library calls) as the yardstick, as rows 2 and 5 carry theirs."""
     run = next(r for r in edit_runs if r['trunk'] == 'fp32'
                and r['window_lr'] == 32)
     parts = {k: kern[f'sepfilter_taps[{k},edit]'] for k in 'UED'}
@@ -3364,11 +3369,18 @@ def taps_row(kern, edit_runs):
             'ms': sum(p['ms'] for p in parts.values()),
             'graph_ms': sum(p['graph_ms'] for p in parts.values()),
             'plain_ms': sum(p['plain_ms'] for p in parts.values()),
+            'library_chain_ms': sum(p['library_chain_ms']
+                                    for p in parts.values()),
             'bound_ms': bms,
             'bound_by': 'bytes' if all(p['bound_by'] == 'bytes'
                                        for p in parts.values())
             else 'operations',
-            'shape': parts['E']['shape_in']}
+            'shape': parts['E']['shape_in'],
+            'parts': {f'{k},{tag}': {f: kern[f'sepfilter_taps[{k},{tag}]'][f]
+                                     for f in ('tile', 'graph_ms',
+                                               'library_chain_ms',
+                                               'bound_ms')}
+                      for tag in ('edit', 'main') for k in 'UED'}}
 
 
 def _models_cases():

@@ -48,18 +48,34 @@
 //
 //   sepfilter_taps  out[n,i,j,c] = sum_e wr[e,i] sum_f wc[f,j]
 //                                  x[n, ir[e,i], ic[f,j], c],
-//                   from host-built tables (index -1 after the last entry).
-//                   With the transposed 1-D matrices of the three maps
-//                   above it computes their adjoints E^T, D^T and U^T: a
-//                   clamped tap folds back onto the edge sample, so the
-//                   adjoint is no clamped correlation, and the host sums
-//                   the folded weights.
+//                   from host-built tables.  With the transposed 1-D
+//                   matrices of the three maps above it computes their
+//                   adjoints E^T, D^T and U^T: a clamped tap folds back
+//                   onto the edge sample, so the adjoint is no clamped
+//                   correlation, and the host sums the folded weights.
 //
-// It is bound by bytes too, and written simply: one block per output tile
-// stages the input rows and columns the tile's tables reach (the host
-// passes each tile's range), runs the column pass (each output row at
-// every staged flat column) into shared memory and the row pass into the
-// output, fp32 FMA, entries in ascending order, each sum from 0.f.
+// What bounds it on the H100 is loads, not FMAs: E^T at batch 16, LR 128
+// moves 6 MB, U^T and D^T 53 MB, in and out of 2-D tiles, and a thread
+// that walks one output's table entries waits on a dependent load for
+// every FMA.  So:
+// - one block per output tile, the tile chosen by the host per launch so
+//   that the launch has two blocks an SM where the output allows it (a
+//   fixed tile left E^T at the edit crop on 4 blocks);
+// - bands: the host regroups each axis's table into bands of kBand
+//   consecutive outputs, each reading the same run of `width` inputs
+//   (dense weights, 0 where an output reads no sample; the widest band
+//   sets width, so every loop has a fixed trip count and no exit on the
+//   data).  A thread holds a band's kBand outputs and applies each input
+//   value it loads to all of them: one load feeds kBand independent FMA
+//   chains (kTapsQ columns or kTapsRows rows of them).  Bands keep the
+//   entries' ascending order, so the sums run in the plain version's
+//   order, with zero products between;
+// - the column pass reads the input straight from device memory, lanes
+//   on consecutive floats of an input row: the L1 keeps what a tile's
+//   bands share, and no FMA waits for a whole staged tile to arrive.  It
+//   writes the tile's columns to shared memory transposed, and the row
+//   pass reads them from there into the output.
+// fp32 FMA, each sum from 0.f.
 #include <cuda_runtime.h>
 
 namespace {
@@ -451,66 +467,155 @@ __global__ void __launch_bounds__(kThreads) sepfilter_up_kernel(UpArgs p) {
 }
 
 // ---------------------------------------------------------------- adjoints
+constexpr int kBand = 4;        // outputs of a band: a thread's outputs
+                                // along the pass, sharing every input load
+constexpr int kTapsQ = 2;       // input columns a thread, 32 apart
+constexpr int kTapsRows = 4;    // output rows a thread, row pass
+
 struct TapsArgs {
   const float* x;
   float* out;
-  const int* ridx;    // [er][hout]
-  const float* rw;
-  const int* cidx;    // [ec][wout]
-  const float* cw;
-  const int* rlo;     // staged input rows of row tile t: [rlo[t], rhi[t]]
-  const int* rhi;
-  const int* clo;     // staged input columns of column tile t
+  const int* rbase;    // first input row of each band of kBand rows
+  const float* rband;  // [bands][ur][kBand]: the band's weights by row
+  const int* cbase;    // first input column of each band of columns
+  const float* cband;  // [bands][uc][kBand]
+  const int* clo;      // input columns of column tile t: [clo[t], chi[t]]
   const int* chi;
-  int hin, win, C, hout, wout, er, ec, th, tw, sh, ld;
+  int hin, win, C, hout, wout, ur, uc, th, tw, ldt;
 };
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+// Shared memory: both axes' bands of the tile (first samples, then the
+// weights [band][u][kBand]) and the column pass transposed, [flat input
+// column][ldt] (ldt = th | 1), so that the row pass reads a thread's rows
+// at fixed offsets and the column pass's lanes store to distinct banks.
+template <int C_>
 __global__ void __launch_bounds__(kThreads) sepfilter_taps_kernel(TapsArgs p) {
-  extern __shared__ float smem[];
-  const int C = p.C, ld = p.ld;
+  extern __shared__ float4 smem4[];  // 16-byte aligned
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int C = C_ ? C_ : p.C;
+  const int ldt = p.ldt, ur = p.ur, uc = p.uc;
   const int i0 = blockIdx.y * p.th, j0 = blockIdx.x * p.tw;
   const int th = min(p.th, p.hout - i0), tw = min(p.tw, p.wout - j0);
-  const int r0 = p.rlo[blockIdx.y], nr = p.rhi[blockIdx.y] - r0 + 1;
   const int c0 = p.clo[blockIdx.x];
-  const int nq = (p.chi[blockIdx.x] - c0 + 1) * C;  // staged floats a row
-  float* s_x = smem;              // [sh][ld] staged input
-  float* s_t = smem + p.sh * ld;  // [th][ld] column pass
-  const float* x = p.x + (size_t)blockIdx.z * p.hin * p.win * C;
+  const int nq = (p.chi[blockIdx.x] - c0 + 1) * C;  // flat columns read
+  const int rb = p.th / kBand, cb = p.tw / kBand;  // bands of a tile
+  int* s_rb = reinterpret_cast<int*>(smem);
+  int* s_cb = s_rb + (rb + 3) / 4 * 4;
+  float4* s_rw = reinterpret_cast<float4*>(s_cb + (cb + 3) / 4 * 4);
+  float4* s_cw = s_rw + rb * ur;
+  float* s_t = reinterpret_cast<float*>(s_cw + cb * uc);
+  const int rs = p.win * C;  // input row stride, floats
+  const float* x = p.x + (size_t)blockIdx.z * p.hin * rs + c0 * C;
   float* out = p.out + (size_t)blockIdx.z * p.hout * p.wout * C;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < nr; r += kWarps) {
-    const float* src = x + ((size_t)(r0 + r) * p.win + c0) * C;
-    for (int f = lane; f < nq; f += 32) cp_async4(s_x + r * ld + f, src + f);
+  // the tile's bands: first samples, then the weights
+  const int bi = blockIdx.y * rb, bj = blockIdx.x * cb;
+  for (int t = threadIdx.x; t < rb + cb; t += kThreads) {
+    if (t < rb)
+      cp_async4(reinterpret_cast<float*>(s_rb + t),
+                reinterpret_cast<const float*>(p.rbase + bi + t));
+    else
+      cp_async4(reinterpret_cast<float*>(s_cb + t - rb),
+                reinterpret_cast<const float*>(p.cbase + bj + t - rb));
+  }
+  for (int t = threadIdx.x; t < (rb * ur + cb * uc); t += kThreads) {
+    if (t < rb * ur)
+      cp_async16(s_rw + t, p.rband + (size_t)(bi * ur + t) * kBand);
+    else
+      cp_async16(s_cw + t - rb * ur,
+                 p.cband + (size_t)(bj * uc + t - rb * ur) * kBand);
   }
   cp_async_wait_all();
   __syncthreads();
 
-  for (int t = threadIdx.x; t < th * nq; t += kThreads) {
-    const int i = t / nq, q = t - i * nq;
-    float acc = 0.f;
-    for (int e = 0; e < p.er; ++e) {
-      const int at = e * p.hout + i0 + i;
-      const int v = __ldg(p.ridx + at);
-      if (v < 0) break;
-      acc = fmaf(__ldg(p.rw + at), s_x[(v - r0) * ld + q], acc);
+  // column pass, straight from device memory: a warp per (band of kBand
+  // output rows, group of 32 kTapsQ flat input columns); lane + 32 m is
+  // column m of the group (clamped into the tile's columns: the loads stay
+  // inside the input), and each value loaded feeds the band's kBand rows
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ngrp = (nq + 32 * kTapsQ - 1) / (32 * kTapsQ);
+  const int rbands = (th + kBand - 1) / kBand;
+  for (int it = warp; it < rbands * ngrp; it += kWarps) {
+    const int band = it / ngrp;
+    const int q = (it - band * ngrp) * 32 * kTapsQ + lane;
+    const float4* w = s_rw + band * ur;
+    const float* xs = x + (size_t)s_rb[band] * rs;
+    int col[kTapsQ];
+    float acc[kBand][kTapsQ];
+#pragma unroll
+    for (int m = 0; m < kTapsQ; ++m) {
+      col[m] = min(q + 32 * m, nq - 1);
+#pragma unroll
+      for (int g = 0; g < kBand; ++g) acc[g][m] = 0.f;
     }
-    s_t[i * ld + q] = acc;
+#pragma unroll 4
+    for (int u = 0; u < ur; ++u) {
+      const float4 wu = w[u];
+#pragma unroll
+      for (int m = 0; m < kTapsQ; ++m) {
+        const float v = __ldg(xs + (size_t)u * rs + col[m]);
+        acc[0][m] = fmaf(wu.x, v, acc[0][m]);
+        acc[1][m] = fmaf(wu.y, v, acc[1][m]);
+        acc[2][m] = fmaf(wu.z, v, acc[2][m]);
+        acc[3][m] = fmaf(wu.w, v, acc[3][m]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kTapsQ; ++m)
+      if (q + 32 * m < nq)
+#pragma unroll
+        for (int g = 0; g < kBand; ++g)
+          s_t[(q + 32 * m) * ldt + band * kBand + g] = acc[g][m];
   }
   __syncthreads();
 
-  const int nf = tw * C;
-  for (int t = threadIdx.x; t < th * nf; t += kThreads) {
-    const int i = t / nf, f = t - i * nf;
-    const int j = f / C, c = f - j * C;
-    float acc = 0.f;
-    for (int e = 0; e < p.ec; ++e) {
-      const int at = e * p.wout + j0 + j;
-      const int v = __ldg(p.cidx + at);
-      if (v < 0) break;
-      acc = fmaf(__ldg(p.cw + at), s_t[i * ld + (v - c0) * C + c], acc);
+  // row pass: a warp per (group of kTapsRows output rows, 32 of the flat
+  // (band of kBand output columns, channel) pairs); a lane's rows are
+  // consecutive in s_t, and each value read feeds the band's kBand columns
+  const int nf = (tw + kBand - 1) / kBand * C;
+  const int fchunks = (nf + 31) / 32;
+  const int rgroups = (th + kTapsRows - 1) / kTapsRows;
+  for (int it = warp; it < rgroups * fchunks; it += kWarps) {
+    const int rg = it / fchunks;
+    const int f = (it - rg * fchunks) * 32 + lane;
+    const int ib = rg * kTapsRows;
+    const int fl = min(f, nf - 1);  // idle lanes read a live band
+    const int band = fl / C, c = fl - band * C;
+    const float4* w = s_cw + band * uc;
+    const float* ts = s_t + ((s_cb[band] - c0) * C + c) * ldt + ib;
+    float acc[kBand][kTapsRows];
+#pragma unroll
+    for (int g = 0; g < kBand; ++g)
+#pragma unroll
+      for (int r = 0; r < kTapsRows; ++r) acc[g][r] = 0.f;
+#pragma unroll 4
+    for (int u = 0; u < uc; ++u) {
+      const float4 wu = w[u];
+#pragma unroll
+      for (int r = 0; r < kTapsRows; ++r) {
+        const float v = ts[u * C * ldt + r];
+        acc[0][r] = fmaf(wu.x, v, acc[0][r]);
+        acc[1][r] = fmaf(wu.y, v, acc[1][r]);
+        acc[2][r] = fmaf(wu.z, v, acc[2][r]);
+        acc[3][r] = fmaf(wu.w, v, acc[3][r]);
+      }
     }
-    out[((size_t)(i0 + i) * p.wout + j0) * C + f] = acc;
+    if (f < nf) {
+      float* dst = out + ((size_t)(i0 + ib) * p.wout + j0 + band * kBand) *
+                             C + c;
+#pragma unroll
+      for (int r = 0; r < kTapsRows; ++r)
+#pragma unroll
+        for (int g = 0; g < kBand; ++g)
+          if (ib + r < th && band * kBand + g < tw)
+            dst[((size_t)r * p.wout + g) * C] = acc[g][r];
+    }
   }
 }
 
@@ -556,6 +661,17 @@ int launch_up(const UpArgs& args, int B, size_t smem, cudaStream_t stream) {
   if (int e = prepare(kernel, smem)) return e;
   dim3 grid((args.Wo + kUpTileW - 1) / kUpTileW,
             (args.Ho + kUpTileH - 1) / kUpTileH, B);
+  kernel<<<grid, kThreads, smem, stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
+template <int C_>
+int launch_taps(const TapsArgs& args, int B, size_t smem,
+                cudaStream_t stream) {
+  auto kernel = sepfilter_taps_kernel<C_>;
+  if (int e = prepare(kernel, smem)) return e;
+  dim3 grid((args.wout + args.tw - 1) / args.tw,
+            (args.hout + args.th - 1) / args.th, B);
   kernel<<<grid, kThreads, smem, stream>>>(args);
   return (int)cudaGetLastError();
 }
@@ -656,29 +772,39 @@ int exsr_sepfilter_up(const void* a, const void* b, const void* g, void* out,
   }
 }
 
-// Dynamic shared memory of a taps launch, in bytes: the staged input
-// (sh rows of sw pixels) and the column pass (th rows).
-size_t exsr_sepfilter_taps_smem(int C, int th, int sh, int sw) {
-  const size_t ld = ((size_t)sw * C) | 1;
-  return (size_t)(sh + th) * ld * sizeof(float);
+// Dynamic shared memory of a taps launch, in bytes: the bands of a th x
+// tw tile (ur and uc weights a band) and its column pass (sw input
+// columns of C floats, th rows).
+size_t exsr_sepfilter_taps_smem(int C, int th, int tw, int ur, int uc,
+                                int sw) {
+  const size_t rb = th / kBand, cb = tw / kBand;
+  return ((rb + 3) / 4 * 4 + (cb + 3) / 4 * 4 + kBand * (rb * ur + cb * uc) +
+          (size_t)sw * C * (th | 1)) * sizeof(float);
 }
 
-int exsr_sepfilter_taps(const void* x, void* out, const void* ridx,
-                        const void* rw, const void* cidx, const void* cw,
-                        const void* rlo, const void* rhi, const void* clo,
-                        const void* chi, int B, int hin, int win, int C,
-                        int hout, int wout, int er, int ec, int th, int tw,
-                        int sh, int sw, void* stream) {
-  const size_t smem = exsr_sepfilter_taps_smem(C, th, sh, sw);
-  const TapsArgs args{(const float*)x, (float*)out, (const int*)ridx,
-                      (const float*)rw, (const int*)cidx, (const float*)cw,
-                      (const int*)rlo, (const int*)rhi, (const int*)clo,
-                      (const int*)chi, hin, win, C, hout, wout, er, ec, th,
-                      tw, sh, (sw * C) | 1};
-  if (int e = prepare(sepfilter_taps_kernel, smem)) return e;
-  dim3 grid((wout + tw - 1) / tw, (hout + th - 1) / th, B);
-  sepfilter_taps_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(args);
-  return (int)cudaGetLastError();
+// Each axis comes as bands of kBand consecutive outputs: a band's first
+// input sample (rbase, cbase) and its weights at the ur (uc) samples from
+// there, [u][kBand] a band.  Tiles are th x tw outputs (multiples of
+// kBand); clo/chi bound the input columns that each column tile's bands
+// read, at most sw of them.
+int exsr_sepfilter_taps(const void* x, void* out, const void* rbase,
+                        const void* rband, const void* cbase,
+                        const void* cband, const void* clo, const void* chi,
+                        int B, int hin, int win, int C, int hout, int wout,
+                        int ur, int uc, int th, int tw, int sw,
+                        void* stream) {
+  if (th % kBand || tw % kBand) return (int)cudaErrorInvalidValue;
+  const size_t smem = exsr_sepfilter_taps_smem(C, th, tw, ur, uc, sw);
+  const TapsArgs args{(const float*)x, (float*)out, (const int*)rbase,
+                      (const float*)rband, (const int*)cbase,
+                      (const float*)cband, (const int*)clo, (const int*)chi,
+                      hin, win, C, hout, wout, ur, uc, th, tw, th | 1};
+  auto s = (cudaStream_t)stream;
+  switch (C) {
+    case 1: return launch_taps<1>(args, B, smem, s);
+    case 3: return launch_taps<3>(args, B, smem, s);
+    default: return launch_taps<0>(args, B, smem, s);
+  }
 }
 
 const char* exsr_cuda_error_string(int err) {

@@ -234,34 +234,67 @@ def sepfilter_kernels(filt, gen, device, batch: int, lr: int,
 
 def taps_inputs(filt, batch: int, lr: int, gen, device):
     """The three adjoints of the CEM filter's backward at LR ``lr`` (HR
-    ``lr * sf``), as ``{kind: (input, row table, column table)}``: ``U``
-    (U^T, HR in, LR out), ``E`` (the inv_hTh filter's E^T, LR) and ``D``
-    (D^T, LR in, HR out), in the order a backward runs them.  Each input
-    has the size of its forward map's output (one pixel more along an axis
-    with an even tap count)."""
+    ``lr * sf``), as ``{kind: (input, row table, column table, forward)}``:
+    ``U`` (U^T, HR in, LR out), ``E`` (the inv_hTh filter's E^T, LR) and
+    ``D`` (D^T, LR in, HR out), in the order a backward runs them, on
+    tables tiled for ``batch`` images.  Each input has the size of its
+    forward map's output (one pixel more along an axis with an even tap
+    count); ``forward`` is that map's plain version, library calls whose
+    autograd backward is the adjoint's library chain."""
     sf, pre = filt.sf, filt.pre
-    cases = {'U': (filt.adj_up, lr), 'E': (filt.adj_inv_hth, lr),
-             'D': (filt.adj_down, lr * sf)}
+    cases = {'U': (filt.adj_up, lr, filt.w_up_1d, K.sepfilter_up_plain),
+             'E': (filt.adj_inv_hth, lr, filt.w_inv_hth_1d,
+                   K.sepfilter_edge_plain),
+             'D': (filt.adj_down, lr * sf, filt.w_down_1d,
+                   K.sepfilter_down_plain)}
     out = {}
-    for kind, (tables, n_fwd) in cases.items():
-        rows, cols = tables.get(kind, n_fwd, n_fwd, sf, pre, device)
+    for kind, (tables, n_fwd, taps, plain) in cases.items():
+        rows, cols = tables.get(kind, n_fwd, n_fwd, sf, pre, device,
+                                batch=batch)
         y = torch.rand(batch, rows.n_in, cols.n_in, 3, generator=gen,
                        device=device)
-        out[kind] = (y, rows, cols)
+        extra = () if kind == 'E' else (sf, pre)
+
+        def forward(x, taps=taps, plain=plain, extra=extra):
+            return plain(x, *taps, *extra)
+        out[kind] = (y, rows, cols, forward)
     return out
 
 
+def taps_library_chain(forward, y, out, iters: int) -> dict:
+    """A yardstick, not one call: the adjoint as autograd computes it for
+    its forward map written from library calls (replicate ``F.pad``, the
+    two depthwise 1-D ``F.conv2d``s; the zero stuffing or the strided
+    slice around them), ``torch.autograd.grad`` of ``y`` on a retained
+    graph, fp32 with TF32 off; its ms and its largest distance to the
+    kernel's ``out``, relative to the largest output.  The port never
+    runs it."""
+    from exsr_torch.device import full_fp32
+    x = torch.zeros(out.shape, device=out.device, requires_grad=True)
+    with full_fp32():
+        fx = forward(x)
+
+        def chain(g):
+            return torch.autograd.grad(fx, x, g, retain_graph=True)[0]
+        err = ((chain(y) - out).abs().max() / out.abs().max()).item()
+        ms = cuda_ms(chain, [(y,)], iters)
+    return {'library_chain_ms': ms, 'library_chain_max_rel_err': err}
+
+
 def sepfilter_taps_kernels(filt, gen, device, batch: int, lr: int,
-                           verify: bool = True) -> dict:
+                           verify: bool = True, references: bool = True
+                           ) -> dict:
     """``sepfilter_taps`` against its plain version (tolerance 1e-5 of the
     largest output: the sums run in another order) for each adjoint of
     the CEM filter's backward at one shape, with its time by events and by
-    graph replay, the plain version's, and its bound: bytes (input, output
-    and both tables, once) or useful operations (2 a table entry, column
-    pass at every input column, row pass at every output row)."""
+    graph replay, its output tile and band widths, and its bound: bytes
+    (input, output and both axes' bands, once) or useful operations (2 a
+    table entry, column pass at every input column, row pass at every
+    output row).  With ``references``, also the plain version's time and
+    the library chain's (:func:`taps_library_chain`)."""
     results = {}
-    for kind, (y, rows, cols) in taps_inputs(filt, batch, lr, gen,
-                                             device).items():
+    for kind, (y, rows, cols, forward) in taps_inputs(
+            filt, batch, lr, gen, device).items():
         sets = [(y, rows, cols)] + [
             (torch.rand(y.shape, generator=gen, device=device), rows, cols)
             for _ in range(2)]
@@ -277,20 +310,31 @@ def sepfilter_taps_kernels(filt, gen, device, batch: int, lr: int,
                    f'{err} > 1e-5')
         b, hi, wi, c = y.shape
         ho, wo = out.shape[1:3]
-        tables = sum(4 * t.idx.numel() * 2 for t in (rows, cols))
+        tables = sum(4 * (t.base.numel() + t.band.numel())
+                     for t in (rows, cols))
         nbytes = 4 * (y.numel() + out.numel()) + tables
         nnz_r = int((rows.idx >= 0).sum())
         nnz_c = int((cols.idx >= 0).sum())
         flops = 2 * b * c * (nnz_r * wi + nnz_c * ho)
         bms, by = bound_ms(nbytes, flops, FP32_FLOPS)
-        results[kind] = dict(
+        rec = dict(
             shape_in=list(y.shape), shape_out=list(out.shape),
             entries=[rows.idx.shape[0], cols.idx.shape[0]],
+            band_width=[rows.width, cols.width],
+            tile=[rows.tile, cols.tile],
             max_abs_err=abs_err, max_rel_err=err, tol=1e-5,
             ms=cuda_ms(K.sepfilter_taps, sets, 30),
             graph_ms=graph_ms(K.sepfilter_taps, sets, 30),
-            plain_ms=cuda_ms(K.sepfilter_taps_plain, sets, 5),
             bound_ms=bms, bound_by=by)
+        if references:
+            rec['plain_ms'] = cuda_ms(K.sepfilter_taps_plain, sets, 5)
+            rec.update(taps_library_chain(forward, y, ref, 10))
+            if verify:
+                _check(rec['library_chain_max_rel_err'] <= 1e-5,
+                       f'sepfilter_taps[{kind}]: the library chain is '
+                       f'{rec["library_chain_max_rel_err"]} from the plain '
+                       'version')
+        results[kind] = rec
         del out, ref, sets
     torch.cuda.empty_cache()
     return results

@@ -175,13 +175,26 @@ def adjoint_taps(kind: str, n_in: int, sf: int, pre: int, k
             np.ascontiguousarray(w.T))
 
 
+BAND = 4  # outputs of a band (the kernel's kBand)
+
+
 @dataclasses.dataclass(frozen=True)
 class AxisTable:
     """One axis of a :func:`sepfilter_taps` product, on a device: output
     ``i`` is ``sum_e w[e, i] * input[idx[e, i]]`` over ``n_in`` input
-    samples.  ``lo`` and ``hi`` bound the input samples that each tile of
-    ``tile`` outputs reads (int32, one per tile); ``span`` is the largest
-    ``hi - lo + 1``."""
+    samples (``idx`` -1 and ``w`` 0 after an output's last entry), the
+    plain version's tables.  ``lo`` and ``hi`` bound the input samples that
+    each tile of ``tile`` outputs reads (int32, one per tile): those its
+    outputs read, widened to at least ``width``; ``span`` is the largest
+    ``hi - lo + 1``.
+
+    The kernel's tables: the outputs in bands of :data:`BAND` (``tile`` a
+    multiple of it, the last tile's padded with zero weights).  A band
+    reads ``width`` consecutive input samples from ``base`` (int32, one a
+    band, inside its tile's ``[lo, hi]``); ``band`` holds their weights,
+    ``[bands, width, BAND]``, 0 where an output does not read a sample.
+    ``width`` is the widest band's reach, the same for every band, so the
+    kernel's loops have fixed trip counts."""
     idx: torch.Tensor
     w: torch.Tensor
     n_in: int
@@ -189,38 +202,86 @@ class AxisTable:
     lo: torch.Tensor
     hi: torch.Tensor
     span: int
+    base: torch.Tensor
+    band: torch.Tensor
+    width: int
 
     @classmethod
     def build(cls, idx: np.ndarray, w: np.ndarray, n_in: int, tile: int,
               device, dtype=torch.float32) -> 'AxisTable':
-        n_out = idx.shape[1]
+        if tile % BAND:
+            raise ValueError(f'tile {tile} is not a multiple of {BAND}')
+        n_ent, n_out = idx.shape
         tiles = max(1, -(-n_out // tile))
-        pad = tiles * tile - n_out
-        ix = np.pad(idx, ((0, 0), (0, pad)), constant_values=-1)
-        ix = ix.reshape(idx.shape[0], tiles, tile)
+        n_pad = tiles * tile
+        ix = np.pad(idx, ((0, 0), (0, n_pad - n_out)), constant_values=-1)
+        wx = np.pad(np.where(idx >= 0, w, 0), ((0, 0), (0, n_pad - n_out)))
         live = ix >= 0
-        lo = np.where(live, ix, n_in).min((0, 2))
-        hi = np.where(live, ix, -1).max((0, 2))
+        bands = ix.reshape(n_ent, -1, BAND)
+        bl = bands >= 0
+        b_lo = np.where(bl, bands, n_in).min((0, 2))
+        b_hi = np.where(bl, bands, -1).max((0, 2))
+        width = max(1, int((b_hi - b_lo).max()) + 1)
+        t = ix.reshape(n_ent, tiles, tile)
+        tl = live.reshape(n_ent, tiles, tile)
+        lo = np.where(tl, t, n_in).min((0, 2))
+        hi = np.where(tl, t, -1).max((0, 2))
         empty = hi < 0
         lo[empty], hi[empty] = 0, 0
-        return cls(torch.from_numpy(idx).to(device),
-                   torch.from_numpy(w).to(device=device, dtype=dtype),
-                   n_in, tile,
-                   torch.from_numpy(lo.astype(np.int32)).to(device),
-                   torch.from_numpy(hi.astype(np.int32)).to(device),
-                   int((hi - lo).max()) + 1)
+        # every tile reads at least width samples (width <= n_in)
+        hi = np.minimum(n_in - 1, np.maximum(hi, lo + width - 1))
+        lo = np.maximum(0, np.minimum(lo, hi - width + 1))
+        per_band = tile // BAND
+        t_lo = np.repeat(lo, per_band)
+        b_lo = np.where(b_hi >= 0, b_lo, t_lo)
+        base = np.clip(b_lo, t_lo, np.repeat(hi, per_band) - width + 1)
+        out_band = np.repeat(np.arange(n_pad // BAND), BAND)
+        u = ix - np.repeat(base, BAND)[None, :]
+        band = np.zeros((n_pad // BAND, width, BAND))
+        e, o = np.nonzero(live)
+        band[out_band[o], u[e, o], o % BAND] = wx[e, o]
+
+        def put(a, **kw):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(
+                device=device, **kw)
+        return cls(put(idx), put(w, dtype=dtype), n_in, tile,
+                   put(lo.astype(np.int32)), put(hi.astype(np.int32)),
+                   int((hi - lo).max()) + 1, put(base.astype(np.int32)),
+                   put(band, dtype=dtype), width)
 
 
-# adjoint output tile along each axis, by the forward's kind: E (LR, same
-# size), D^T (LR -> HR, few inputs per output), U^T (HR -> LR, ~sf + k/sf
-# inputs per output, so small tiles keep the staged input small)
-_ADJ_TILE = {'E': (16, 64), 'D': (32, 64), 'U': (8, 16)}
+# The H100 SXM's streaming multiprocessors: an adjoint launch takes the
+# first of its kind's output tiles that gives it two blocks an SM
+_SMS = 132
+# adjoint output tiles (rows, columns), multiples of BAND, in order of
+# preference, by the forward's kind: E^T (LR, same size: the column pass
+# runs at tw + k - 1 input columns, so wide tiles waste least), D^T (LR
+# -> HR: tall tiles, whose column bands share their few input rows), U^T
+# (HR -> LR: a band of rows across the whole width reads its input rows
+# whole, which device memory serves fastest)
+_ADJ_TILES = {'E': ((8, 64), (8, 32), (8, 16), (4, 16), (4, 8)),
+              'D': ((64, 64), (32, 64), (16, 64), (16, 32), (8, 32),
+                    (8, 16)),
+              'U': ((4, 128), (8, 32), (8, 16), (4, 16), (4, 8))}
+
+
+def adjoint_tile(kind: str, n_h: int, n_w: int, batch: int
+                 ) -> tuple[int, int]:
+    """The output tile of an adjoint launch on ``batch`` images of ``n_h x
+    n_w`` outputs: the first of the kind's tiles whose grid has at least
+    two blocks an SM, else the last, the smallest (a small output fills
+    fewer SMs, with the shortest chains)."""
+    for th, tw in _ADJ_TILES[kind]:
+        if batch * -(-n_h // th) * -(-n_w // tw) >= 2 * _SMS:
+            return th, tw
+    return _ADJ_TILES[kind][-1]
 
 
 class AdjointTables:
     """The adjoint tables of one separable filter: :func:`adjoint_taps` of
     its float64 host taps, as :class:`AxisTable` pairs kept by kind, input
-    shape, ``sf``, ``pre``, device and weight dtype.
+    shape, ``sf``, ``pre``, device, weight dtype and the launch's output
+    tile (:func:`adjoint_tile`, from the batch).
 
     The owner of the taps keeps one (``CEMFilters`` does, built from the
     numpy filters), so a backward neither copies the taps from the device
@@ -237,19 +298,21 @@ class AdjointTables:
         return cls(*(k.detach().cpu().numpy() for k in (kcol, krow)))
 
     def get(self, kind: str, n_h: int, n_w: int, sf: int,
-            pre: tuple[int, int], device, dtype=torch.float32
-            ) -> tuple[AxisTable, AxisTable]:
+            pre: tuple[int, int], device, dtype=torch.float32,
+            batch: int = 1) -> tuple[AxisTable, AxisTable]:
         """(row, column) tables that take :func:`sepfilter_taps` to the
-        adjoint of the ``kind`` map whose input is ``n_h x n_w``."""
-        key = (kind, n_h, n_w, sf, tuple(pre), torch.device(device), dtype)
+        adjoint of the ``kind`` map whose input is ``n_h x n_w``, tiled
+        for a launch on ``batch`` images."""
+        tile = adjoint_tile(kind, n_h, n_w, batch)
+        key = (kind, n_h, n_w, sf, tuple(pre), torch.device(device), dtype,
+               tile)
         hit = self._cache.get(key)
         if hit is None:
             hit = tuple(
                 AxisTable.build(*adjoint_taps(kind, n, sf, p, k),
-                                _forward_len(kind, n, sf, p, k.size),
-                                _ADJ_TILE[kind][axis], device, dtype)
-                for axis, (n, p, k) in enumerate(zip((n_h, n_w), pre,
-                                                     self.host)))
+                                _forward_len(kind, n, sf, p, k.size), t,
+                                device, dtype)
+                for n, p, k, t in zip((n_h, n_w), pre, self.host, tile))
             self._cache[key] = hit
         return hit
 
@@ -288,8 +351,9 @@ def sepfilter_taps(x: torch.Tensor, rows: AxisTable, cols: AxisTable
     x[n, rows.idx[e,i], cols.idx[f,j], c]`` on NHWC ``x``.
 
     A CPU tensor goes to :func:`sepfilter_taps_plain`; a CUDA tensor (fp32)
-    launches the kernel, a column pass then a row pass over each output
-    tile's staged input, in fp32 FMA."""
+    launches the kernel on the tables' bands: for each output tile a
+    column pass from the input into shared memory, then a row pass into
+    the output, in fp32 FMA."""
     if x.dim() != 4 or x.shape[1] != rows.n_in or x.shape[2] != cols.n_in:
         raise ValueError(f'x {tuple(x.shape)} does not match the tables '
                          f'({rows.n_in} x {cols.n_in} inputs)')
@@ -300,7 +364,7 @@ def sepfilter_taps(x: torch.Tensor, rows: AxisTable, cols: AxisTable
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError('x must be contiguous fp32 NHWC')
     for t in (rows, cols):
-        if t.idx.device != x.device or t.w.dtype != torch.float32:
+        if t.band.device != x.device or t.band.dtype != torch.float32:
             raise ValueError('tables must be fp32, on the device of x')
     n, _, _, c = x.shape
     hout, wout = rows.idx.shape[1], cols.idx.shape[1]
@@ -308,16 +372,16 @@ def sepfilter_taps(x: torch.Tensor, rows: AxisTable, cols: AxisTable
     if out.numel() == 0:
         return out
     lib = build.load('sepfilter', _SIGNATURES)
-    smem = lib.exsr_sepfilter_taps_smem(c, rows.tile, rows.span, cols.span)
-    _check_smem(smem, f'sepfilter_taps at C={c}, spans {rows.span} x '
-                f'{cols.span}')
+    smem = lib.exsr_sepfilter_taps_smem(c, rows.tile, cols.tile,
+                                        rows.width, cols.width, cols.span)
+    _check_smem(smem, f'sepfilter_taps at C={c}, tile {rows.tile} x '
+                f'{cols.tile}, {cols.span} input columns')
     err = lib.exsr_sepfilter_taps(
-        x.data_ptr(), out.data_ptr(), rows.idx.data_ptr(),
-        rows.w.data_ptr(), cols.idx.data_ptr(), cols.w.data_ptr(),
-        rows.lo.data_ptr(), rows.hi.data_ptr(), cols.lo.data_ptr(),
-        cols.hi.data_ptr(), n, x.shape[1], x.shape[2], c, hout, wout,
-        rows.idx.shape[0], cols.idx.shape[0], rows.tile, cols.tile,
-        rows.span, cols.span, _stream(x))
+        x.data_ptr(), out.data_ptr(), rows.base.data_ptr(),
+        rows.band.data_ptr(), cols.base.data_ptr(), cols.band.data_ptr(),
+        cols.lo.data_ptr(), cols.hi.data_ptr(), n, x.shape[1], x.shape[2],
+        c, hout, wout, rows.width, cols.width, rows.tile, cols.tile,
+        cols.span, _stream(x))
     build.check(lib, err, 'sepfilter_taps')
     sepfilter_taps.launches += 1
     return out
@@ -453,7 +517,7 @@ def _maps(kind, kcol, krow, sf, pre, n_h, n_w, adjoint=None):
             AdjointTables.of(kcol, krow)
         dtype = torch.float64 if y.dtype == torch.float64 else torch.float32
         return sepfilter_taps(y, *tabs.get(kind, n_h, n_w, sf, pre,
-                                           y.device, dtype))
+                                           y.device, dtype, y.shape[0]))
     return forward, transpose
 
 
@@ -583,6 +647,6 @@ _SIGNATURES = {
     'exsr_sepfilter_down_smem': ([_I] * 4, ctypes.c_size_t),
     'exsr_sepfilter_up': ([_P] * 8 + [_I] * 11 + [_P], _I),
     'exsr_sepfilter_up_smem': ([_I] * 7, ctypes.c_size_t),
-    'exsr_sepfilter_taps': ([_P] * 10 + [_I] * 12 + [_P], _I),
-    'exsr_sepfilter_taps_smem': ([_I] * 4, ctypes.c_size_t),
+    'exsr_sepfilter_taps': ([_P] * 8 + [_I] * 11 + [_P], _I),
+    'exsr_sepfilter_taps_smem': ([_I] * 6, ctypes.c_size_t),
 }

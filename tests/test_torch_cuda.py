@@ -360,29 +360,47 @@ def test_kernels_refuse_gradients(cuda):
             torch.rand(1, 32, 32, 3, device=cuda))
 
 
-# (kind, sf, pre, taps, (h, w) of the forward's input): every sf of the
-# bicubic CEM at both extreme sub-positions, the CEM's tap counts, ragged
-# sizes, tiles cut short, and axes shorter than the taps
+# (kind, sf, pre, taps, (h, w) of the forward's input, batch): every sf of
+# the bicubic CEM at both extreme sub-positions, the CEM's tap counts,
+# ragged sizes, tiles cut short, and axes shorter than the taps
 TAPS_GRID = (
-    [('E', 1, 0, k, hw) for k in (4, 9, 11, 17, 27, 33)
+    [('E', 1, 0, k, hw, 2) for k in (4, 9, 11, 17, 27, 33)
      for hw in ((13, 21), (3, 2), (70, 130))]
-    + [(kind, sf, pre, k, hw) for sf in (2, 3, 4, 8) for pre in (0, sf - 1)
+    + [(kind, sf, pre, k, hw, 2) for sf in (2, 3, 4, 8)
+       for pre in (0, sf - 1)
        for kind, k, hw in (('D', 9, (5 * sf + 1, 3 * sf)),
                            ('D', 17, (sf, sf + 1)),
                            ('D', 33, (37 * sf + 3, 19 * sf)),
                            ('U', 11, (5, 3)), ('U', 17, (2, 1)),
                            ('U', 33, (37, 70)))]
     # even taps grow the forward's output by one along each axis
-    + [(kind, sf, pre, k, hw) for sf in (2, 3, 4) for pre in (0, sf - 1)
+    + [(kind, sf, pre, k, hw, 2) for sf in (2, 3, 4) for pre in (0, sf - 1)
        for k in (4, 6, 8)
        for kind, hw in (('D', (5 * sf + 1, 3 * sf)), ('U', (5, 3)))]
+    # the x4 CEM's own shapes (27-tap E, 17-tap U and D, pre 1): the edit
+    # crops at batch 1 and the training shape at batch 16
+    + [(kind, sf, 1 if sf > 1 else 0, k, (n * m, n * m), batch)
+       for n, batch in ((40, 1), (56, 1), (64, 1), (52, 16))
+       for kind, sf, k, m in (('E', 1, 27, 1), ('U', 4, 17, 1),
+                              ('D', 4, 17, 4))]
+    # sizes where the tile chosen per launch (adjoint_tile) switches: every
+    # tile of each kind
+    + [('E', 1, 0, 27, (n, n), b) for n, b in ((130, 1), (180, 1),
+                                                (260, 1), (128, 16))]
+    + [('U', 4, 1, 17, (n, n), b) for n, b in ((90, 1), (130, 1),
+                                                (180, 1), (260, 1),
+                                                (128, 16))]
+    + [('D', 4, 1, 17, (n, n), b) for n, b in ((260, 1), (360, 1),
+                                                (520, 1), (520, 2),
+                                                (512, 16))]
 )
 
 
-@pytest.mark.parametrize('kind,sf,pre,k,hw', TAPS_GRID)
-def test_sepfilter_taps_matches_plain(cuda, kind, sf, pre, k, hw):
+@pytest.mark.parametrize('kind,sf,pre,k,hw,batch', TAPS_GRID)
+def test_sepfilter_taps_matches_plain(cuda, kind, sf, pre, k, hw, batch):
     """The adjoint kernel against its plain version on the same tables,
-    fp32, 1e-5 of the largest output (the sums run in another order)."""
+    tiled for the batch, fp32, 1e-5 of the largest output (the sums run in
+    another order)."""
     from exsr_torch.ops.kernels import sepfilter as S
     gen = torch.Generator(device=cuda).manual_seed(k + 100 * sf + pre)
     kcol, krow = _rand(gen, k), _rand(gen, k)
@@ -392,15 +410,18 @@ def test_sepfilter_taps_matches_plain(cuda, kind, sf, pre, k, hw):
                                         len(range(pre, w + g, sf))),
              'U': (h * sf + g, w * sf + g)}[kind]
     for c in (1, 3):
-        y = torch.rand(2, *n_out, c, generator=gen, device=cuda)
+        y = torch.rand(batch, *n_out, c, generator=gen, device=cuda)
         tabs = S.AdjointTables.of(kcol, krow).get(kind, h, w, sf,
-                                                  (pre, pre), cuda)
+                                                  (pre, pre), cuda,
+                                                  batch=batch)
+        assert (tabs[0].tile, tabs[1].tile) == S.adjoint_tile(kind, h, w,
+                                                              batch)
         before = S.sepfilter_taps.launches
         out = S.sepfilter_taps(y, *tabs)
         torch.cuda.synchronize()
         assert S.sepfilter_taps.launches == before + 1
         ref = S.sepfilter_taps_plain(y, *tabs)
-        assert out.shape == (2, h, w, c)
+        assert out.shape == (batch, h, w, c)
         assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
@@ -1095,7 +1116,11 @@ def test_web_sr_optimize_request_on_cuda(cuda):
 def test_aux_models_on_cuda_match_cpu(cuda, kind):
     """The models no entry point reaches, narrow, on the card against the
     CPU in fp32 (1e-4 of the largest output); the critics in train mode,
-    their running statistics (or ``u``) moved once on both."""
+    their running statistics (or ``u``) moved once on both.  ResNet101's
+    train-mode batch statistics (8 values a channel in the last stage)
+    carry fp32 rounding through 101 layers to ~1e-3 on either device:
+    beyond 1e-4 its float64 run on the CPU decides, the card no farther
+    from it than three times the CPU."""
     import copy
     from exsr_torch.device import full_fp32
     from exsr_torch.models import discriminators as D
@@ -1111,8 +1136,9 @@ def test_aux_models_on_cuda_match_cpu(cuda, kind):
                                              x(2, 64, 64, 8)), {}),
         'segnet': lambda: (SegNet(num_layers=5), (x(2, 32, 32, 3),),
                            {'train': True}),
-        'eresnet': lambda: (EResNet(ndf=8, vae_like=True, input_size=64),
-                            (x(2, 64, 64, 3),), {}),
+        'eresnet': lambda: (EResNet(output_nc=8, ndf=8, vae_like=True,
+                                    input_size=128),
+                            (x(2, 128, 128, 3),), {}),
         'minc': lambda: (MINCNet(), (x(2, 32, 32, 3),), {}),
         'resnet101': lambda: (ResNet101Features(), (x(2, 64, 64, 3),),
                               {'train': True}),
@@ -1124,14 +1150,24 @@ def test_aux_models_on_cuda_match_cpu(cuda, kind):
                           {'update_stats': True}),
     }[kind]()
     card = copy.deepcopy(module).to(cuda)
+    exact = copy.deepcopy(module).double() if kind == 'resnet101' else None
     with torch.no_grad(), full_fp32():
         want = module(*inputs, **kw)
         got = card(*(t.to(cuda) for t in inputs), **kw)
+        ref = None if exact is None else \
+            exact(*(t.double() for t in inputs), **kw)
     pairs = list(zip(got, want)) if isinstance(want, tuple) \
         else [(got, want)]
     for g, w in pairs:
         assert g.device.type == 'cuda'
-        assert float((g.cpu() - w).abs().max() / w.abs().max()) < 1e-4
+        err = float((g.cpu() - w).abs().max() / w.abs().max())
+        if err >= 1e-4 and ref is not None:
+            def gap(t):
+                return float((t.cpu().double() - ref).abs().max()
+                             / ref.abs().max())
+            assert gap(g) <= max(1e-4, 3 * gap(w))
+        else:
+            assert err < 1e-4
     sd = card.state_dict()
     for k, v in module.state_dict().items():
         torch.testing.assert_close(sd[k].cpu(), v, atol=1e-5, rtol=1e-4,

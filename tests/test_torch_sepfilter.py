@@ -1,8 +1,10 @@
 """The CEM filter's polyphase entry points on the CPU: ``sepfilter_down`` and
 ``sepfilter_up`` (and ``CEMFilters``, which routes through them) against
-exsr's ``CEMFilters``, the host-built tap lists of the up kernel against the
-plain version, and the launch counters.  The CUDA kernels themselves are
-tested by tests/test_torch_cuda.py."""
+exsr's ``CEMFilters``, the host-built tap lists of the up kernel and the
+adjoint kernel's bands against the plain version, and the launch counters.
+The CUDA kernels themselves are tested by tests/test_torch_cuda.py."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -332,3 +334,65 @@ def test_even_tap_enforce_fails_in_exsr_and_in_the_port():
         jf.enforce(jnp.asarray(lr), jnp.asarray(g))
     with pytest.raises(ValueError, match='x3 size'):
         tf.enforce(tl, tg)
+
+
+# (kind, sf, pre, taps, (h, w) of the forward's input): the x4 CEM's tap
+# counts on axes shorter than the taps and on sizes whose last tiles are
+# ragged, and even taps; each tiled for a launch on 1 and on 16 images
+KERNEL_TABLE_CASES = [('E', 1, 0, 27, (3, 2)), ('E', 1, 0, 27, (56, 57)),
+                      ('U', 4, 1, 17, (2, 1)), ('U', 4, 1, 17, (56, 53)),
+                      ('D', 4, 1, 17, (5, 3)), ('D', 4, 1, 17, (224, 210)),
+                      ('E', 1, 0, 4, (13, 21)), ('U', 3, 2, 4, (9, 7)),
+                      ('D', 2, 0, 6, (41, 30))]
+
+
+def _from_bands(t):
+    """The kernel's bands of ``t`` as plain tables, ``[width, n_out]``:
+    entry ``u`` of an output is input sample ``base + u`` of its band."""
+    o = torch.arange(t.idx.shape[1])
+    idx = t.base[o // K.BAND][None, :] + torch.arange(t.width)[:, None]
+    return dataclasses.replace(t, idx=idx.int(),
+                               w=t.band[o // K.BAND, :, o % K.BAND].T)
+
+
+@pytest.mark.parametrize('batch', [1, 16])
+@pytest.mark.parametrize('kind,sf,pre,k,hw', KERNEL_TABLE_CASES)
+def test_kernel_bands_are_the_plain_tables(kind, sf, pre, k, hw, batch):
+    """``AxisTable.build``'s bands: the tile ``adjoint_tile`` picks for the
+    batch, a multiple of the band; every band ``width`` samples wide from
+    a ``base`` inside its tile's ``[lo, hi]``, which holds every sample the
+    tile's outputs read; each weight where the plain tables put it (0
+    elsewhere).  Through the plain version they give the plain tables'
+    output bit for bit: the same products in the same order, and zeros."""
+    rng = np.random.default_rng(k + 10 * sf)
+    tabs = K.AdjointTables(rng.standard_normal(k), rng.standard_normal(k))
+    rows, cols = tabs.get(kind, *hw, sf, (pre, pre), 'cpu', batch=batch)
+    assert (rows.tile, cols.tile) == K.adjoint_tile(kind, *hw, batch)
+    for t in (rows, cols):
+        n_out = t.idx.shape[1]
+        assert t.tile % K.BAND == 0
+        n_bands = -(-n_out // t.tile) * t.tile // K.BAND
+        assert t.band.shape == (n_bands, t.width, K.BAND)
+        staged = t.hi - t.lo + 1
+        assert int(staged.max()) == t.span
+        assert bool((staged >= min(t.width, t.n_in)).all())
+        tile_of = torch.arange(n_bands) * K.BAND // t.tile
+        assert bool((t.base >= t.lo[tile_of]).all())
+        assert bool((t.base + t.width - 1 <= t.hi[tile_of]).all())
+        o = torch.arange(n_out)
+        live = t.idx >= 0
+        assert bool((t.idx[live] >= t.lo[o // t.tile].expand_as(
+            t.idx)[live]).all())
+        assert bool((t.idx[live] <= t.hi[o // t.tile].expand_as(
+            t.idx)[live]).all())
+        u = t.idx - t.base[o // K.BAND]
+        assert bool(((u[live] >= 0) & (u[live] < t.width)).all())
+        assert torch.equal(
+            t.band[(o // K.BAND).expand_as(t.idx)[live], u[live],
+                   (o % K.BAND).expand_as(t.idx)[live]], t.w[live])
+        assert int((t.band != 0).sum()) == int((t.w[live] != 0).sum())
+    y = torch.from_numpy(rng.uniform(size=(batch, rows.n_in, cols.n_in, 3))
+                         .astype(np.float32))
+    assert torch.equal(K.sepfilter_taps_plain(y, _from_bands(rows),
+                                              _from_bands(cols)),
+                       K.sepfilter_taps_plain(y, rows, cols))
