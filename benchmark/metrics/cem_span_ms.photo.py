@@ -1,0 +1,4 @@
+"""`cem_span_ms.serve`, in the cells of one photo a request."""
+from benchmark.metrics.common import same_as
+
+read = same_as('cem_span_ms.serve')

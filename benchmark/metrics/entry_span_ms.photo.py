@@ -1,0 +1,4 @@
+"""`entry_span_ms.serve`, in the cells of one photo a request."""
+from benchmark.metrics.common import same_as
+
+read = same_as('entry_span_ms.serve')

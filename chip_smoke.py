@@ -75,8 +75,8 @@ Phases, one JSON line each (``t_s``: seconds since the script started):
    MAP iterations; fp32, TF32 off) on seeded weights and a seeded
    synthetic batch: a non-dual D step, a non-dual G step, a dual D step
    and a dual G step, each a warm-up and two timed calls; host ms per
-   step, the MAP loop's device share, CEM-kernel launches against the
-   prediction, peak memory, what each step moves (G or D, D's running
+   step, the MAP loop's device share (its ``exsr.map_loop`` spans'
+   device time, recorded), CEM-kernel launches against the prediction, peak memory, what each step moves (G or D, D's running
    statistics only in the D step, the L_struct ring only in the G step),
    one profiled dual G step, and the CEM filter's entry points and
    adjoints at the training shapes (LR 52, HR 208, batch 16) against
@@ -218,7 +218,15 @@ Phases, one JSON line each (``t_s``: seconds since the script started):
    batch norms over the data group only and L_struct not halved (planted
    faults) must break a limit; every rank's launches, halo exchanges and
    batch-norm reductions per step checked exactly; peak memory and ms per
-   step, per rank and for one process.
+   step, per rank and for one process;
+30. span_cost: what the program's spans (``exsr_torch.utils.logging``)
+   cost on the host: one span with nothing recording and inside
+   ``recording()``; a bf16 Z-sweep request (LR 128, 15 Z, the Z maps on
+   the card; alternating blocks) and a dual D and G training iteration
+   (phase 11's; once each) with nothing recording and inside
+   ``recording()``, host ms from the call to its return and to the
+   synchronize after it, each recorded call checked to keep the same
+   spans.
 
 Phase 3 also checks and times ``sepfilter_taps``, the CEM filter's adjoint
 kernel, at the edit shape and at the main path's batch-16 shapes, beside
@@ -321,6 +329,10 @@ PARITY_IMAGES, PARITY_HR = 3, 512
 SFT_LR, MODELS_BATCH, FEAT_HW, CRITIC_BATCH, MODELS_ITERS = 128, 4, 224, 16, 5
 # imresize's C++ path: timed repeats of each route
 RESIZE_REPS = 3
+# the spans' cost (phase 30): alternating blocks of serving requests (off,
+# on, ...) and their requests (a training iteration is timed once off,
+# once on), and the calls of one span timed together
+SPAN_BLOCKS, SPAN_REQS, SPAN_CALLS = 3, 10, 20000
 # data-parallel training: the global batch, the torchrun CLI's steps, and
 # the time limit of each launch
 DDP_BATCH, DDP_CLI_STEPS, DDP_TIMEOUT = 16, 2, 300
@@ -801,12 +813,14 @@ def profile_forward(serve, z):
     def self_us(e):
         return getattr(e, 'self_device_time_total', None) or \
             getattr(e, 'self_cuda_time_total', 0)
-    # aten:: ops repeat the device time of the kernels they launch, and
-    # 'Command Buffer Full' records the host waiting on a full launch queue
+    # aten:: ops and the program's spans (exsr.*) repeat the device time
+    # of the kernels they launch, and 'Command Buffer Full' records the
+    # host waiting on a full launch queue
     stall = 'Command Buffer Full'
     events = prof.key_averages()
     kernels = sorted(((e.key, self_us(e), e.count) for e in events
-                      if self_us(e) > 0 and not e.key.startswith('aten::')
+                      if self_us(e) > 0
+                      and not e.key.startswith(('aten::', 'exsr.'))
                       and e.key != stall), key=lambda t: -t[1])
     total = sum(t[1] for t in kernels)
     ours = {k: sum(t[1] for t in kernels if k in t[0])
@@ -1460,6 +1474,97 @@ def train_launches(kind: str, dual: bool, iters: int) -> dict:
                        backwards=inner + (fwd if kind == 'g' else 0))
 
 
+def map_loop_ms() -> float:
+    """Device ms in the MAP loop's spans (``exsr.map_loop``) recorded
+    since the last ``reset``."""
+    from exsr_torch.utils.logging import recorded
+    return sum(s['device_ms'] for s in recorded()['spans']
+               if s['name'] == 'exsr.map_loop')
+
+
+def phase_span_cost(device, name):
+    """Phase 30: host cost of the program's spans, nothing recording
+    against inside ``recording()`` (spans with their CUDA events, no
+    profiler)."""
+    import statistics
+    import torch
+    from exsr_torch.apps.eval_sr import (build_model, bucketed_sweep,
+                                         sweep_values)
+    from exsr_torch.utils.logging import recorded, recording, reset, span
+    t_phase = time.perf_counter()
+
+    def per_span_us():
+        t0 = time.perf_counter()
+        for _ in range(SPAN_CALLS):
+            with span('exsr.probe'):
+                pass
+        return 1e6 * (time.perf_counter() - t0) / SPAN_CALLS
+    reset()
+    span_off_us = per_span_us()
+    with recording():
+        span_on_us = per_span_us()
+    torch.cuda.synchronize()
+    reset()
+
+    def timed(call):
+        t0 = time.perf_counter()
+        call()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return 1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t0)
+
+    def blocks(call, order, reps):
+        """``({mode: [host ms, ms] medians}, spans a recorded call)``
+        over ``order``'s blocks of ``reps`` calls; every recorded block
+        holds the same spans a call, and no other block any."""
+        runs, counts = {'off': [], 'on': []}, set()
+        for mode in order:
+            reset()
+            ctx = recording() if mode == 'on' else contextlib.nullcontext()
+            with ctx:
+                runs[mode] += [timed(call) for _ in range(reps)]
+            n = len(recorded()['spans'])
+            if mode == 'on':
+                counts.add(n / reps)
+            check(n > 0 if mode == 'on' else n == 0,
+                  f'span_cost: {n} spans in a block of {reps} {mode}')
+        reset()
+        check(len(counts) == 1, f'span_cost: spans a call {counts}')
+        return {m: [statistics.median(r[0] for r in v),
+                    statistics.median(r[1] for r in v)]
+                for m, v in runs.items()}, counts.pop()
+
+    _, fwd = build_model(SCALE, device=device, dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(31)
+    lr = torch.rand((1, LR, LR, 3), generator=gen, device=device).cpu()
+    zs = [torch.full((1, SCALE * LR, SCALE * LR, 3), v, device=device)
+          for v in sweep_values('uniform_sweep', 16)]
+    for _ in range(2):
+        timed(lambda: bucketed_sweep(fwd, lr, zs))
+    serve, per_req = blocks(lambda: bucketed_sweep(fwd, lr, zs),
+                            ('off', 'on') * SPAN_BLOCKS, SPAN_REQS)
+    check(per_req == 5, f'span_cost: {per_req} spans a request')
+    del fwd, zs
+    exp, _, trainer, g, d = train_setup(device)
+    state = trainer.init_state(g, d, seed=2, device=device)
+    batch = train_batch(exp.train, exp.train_data.batch_size, device,
+                        seed=21)
+
+    def iteration():
+        trainer.d_step(state, batch, dual=True)
+        trainer.g_step(state, batch, dual=True)
+        trainer.advance(state)
+    timed(iteration)
+    train, per_iter = blocks(iteration, ('off', 'on'), 1)
+    emit('span_cost', device=name, span_off_us=span_off_us,
+         span_on_us=span_on_us, serve_ms=serve, spans_per_request=per_req,
+         train_ms=train, spans_per_iteration=per_iter,
+         note='[host ms call to return, ms to the synchronize] medians',
+         phase_s=time.perf_counter() - t_phase)
+    del state, batch
+    torch.cuda.empty_cache()
+
+
 def phase_train(device, name):
     """The SR trainer's four step kinds at the flagship configuration on
     the card: host ms per step, the MAP loop's device share, CEM-kernel
@@ -1468,6 +1573,7 @@ def phase_train(device, name):
     adjoints at the training shapes against their plain versions."""
     import math
     import torch
+    from exsr_torch.utils.logging import recording, reset
     from exsr_torch.utils.misc import fetch_scalars
     t_phase = time.perf_counter()
     exp, filt, trainer, g, d = train_setup(device)
@@ -1475,18 +1581,6 @@ def phase_train(device, name):
     batch_size = exp.train_data.batch_size
     state = trainer.init_state(g, d, seed=2, device=device)
     batch = train_batch(cfg, batch_size, device, seed=21)
-    map_events = []
-    optimal_z = trainer._optimal_z
-
-    def timed_optimal_z(*a, **k):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = optimal_z(*a, **k)
-        end.record()
-        map_events.append((start, end))
-        return out
-    trainer._optimal_z = timed_optimal_z
 
     def snapshot(module, buffers=False):
         src = module.buffers() if buffers else module.parameters()
@@ -1505,14 +1599,15 @@ def phase_train(device, name):
             g0, d0 = snapshot(state.g), snapshot(state.d)
             stats0 = snapshot(state.d, buffers=True)
             count0 = int(state.ratio_stats.count)
-            map_events.clear()
+            reset()
             torch.cuda.reset_peak_memory_stats(device)
             zero_launches()
             t0 = time.perf_counter()
-            if kind == 'd':
-                state, metrics = trainer.d_step(state, batch, dual=dual)
-            else:
-                state, metrics = trainer.g_step(state, batch, dual=dual)
+            with recording():
+                if kind == 'd':
+                    state, metrics = trainer.d_step(state, batch, dual=dual)
+                else:
+                    state, metrics = trainer.g_step(state, batch, dual=dual)
             torch.cuda.synchronize()
             ms = 1e3 * (time.perf_counter() - t0)
             launches = read_launches()
@@ -1535,13 +1630,11 @@ def phase_train(device, name):
                            metrics=metrics)
                 continue
             rec['ms'].append(ms)
-            rec['map_ms'].append(sum(s.elapsed_time(e)
-                                     for s, e in map_events))
+            rec['map_ms'].append(map_loop_ms())
             rec['peak_gib'].append(torch.cuda.max_memory_allocated(device)
                                    / 2 ** 30)
         rec['map_share'] = sum(rec['map_ms']) / sum(rec['ms'])
         emit('train_step', device=name, step=key, **rec)
-    trainer._optimal_z = optimal_z
     iteration = {k: (records[f'd_{k}']['ms'][-1]
                      + records[f'g_{k}']['ms'][-1]) for k in ('single',
                                                               'dual')}
@@ -2317,23 +2410,12 @@ def phase_train_jpeg_step(device, name):
     step."""
     import math
     import torch
+    from exsr_torch.utils.logging import recording, reset
     from exsr_torch.utils.misc import fetch_scalars
     t_phase = time.perf_counter()
     trainer, g, d, data = jpeg_train_setup(JPEG_TRAIN_BATCH, seed=51)
     state = trainer.init_state(g, d, seed=2, device=device)
     batch = {k: v.to(device) for k, v in data.items()}
-    map_events = []
-    optimal_z = trainer._optimal_z
-
-    def timed_optimal_z(*a, **k):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = optimal_z(*a, **k)
-        end.record()
-        map_events.append((start, end))
-        return out
-    trainer._optimal_z = timed_optimal_z
 
     def step(kind, dual):
         if kind == 'd':
@@ -2348,11 +2430,12 @@ def phase_train_jpeg_step(device, name):
                 g0, d0 = _snap(state.g.parameters()), \
                     _snap(state.d.parameters())
                 bn0 = _snap(_running(state.g))
-                map_events.clear()
+                reset()
                 torch.cuda.reset_peak_memory_stats(device)
                 zero_launches()
                 t0 = time.perf_counter()
-                state, metrics = step(kind, dual)
+                with recording():
+                    state, metrics = step(kind, dual)
                 torch.cuda.synchronize()
                 ms = 1e3 * (time.perf_counter() - t0)
                 launches = read_launches()
@@ -2370,8 +2453,7 @@ def phase_train_jpeg_step(device, name):
                     rec['metrics'] = metrics
                     continue
                 rec['ms'].append(ms)
-                rec['map_ms'].append(sum(s.elapsed_time(e)
-                                         for s, e in map_events))
+                rec['map_ms'].append(map_loop_ms())
                 rec['peak_gib'].append(
                     torch.cuda.max_memory_allocated(device) / 2 ** 30)
             rec['map_share'] = sum(rec['map_ms']) / sum(rec['ms'])
@@ -2385,7 +2467,6 @@ def phase_train_jpeg_step(device, name):
                     'kernel_calls')}
                 rec['profile']['top10'] = prof['top'][:10]
             emit('train_jpeg_step', device=name, step=key, **rec)
-    trainer._optimal_z = optimal_z
     # control: the non-dual D step with its fakes through cuDNN
     control = []
     with tf32_on(), _cudnn_fakes():
@@ -5314,6 +5395,7 @@ def _phases(device, name, smi, tmp) -> int:
     phase_jpeg_edit(device, name, jpeg_bytes)
     phase_jpeg_eval_cli(device, name)
     phase_train_jpeg_step(device, name)
+    phase_span_cost(device, name)
     phase_train_jpeg_reference(device, name)
     phase_train_jpeg_cli(device, name)
     phase_kernelgan(device, name)

@@ -41,6 +41,7 @@ from exsr_torch.models.rrdb import RRDBNet
 from exsr_torch.models.rrdb_fast import pack_grouped_params, \
     rrdbnet_apply_fast
 from exsr_torch.train.checkpoints import CheckpointManager, load_exsr_npz
+from exsr_torch.utils.logging import count, span
 from exsr_torch.utils.serve import best_bucket, pad_batch
 
 PLAIN_ARCHS = {'MSRResNet': MSRResNet, 'sr_resnet': SRResNet}
@@ -132,15 +133,18 @@ def build_model(scale: int, nb: int = 23, latent_channels: int = 3,
                            pre_pad=True)
     else:
         def run(lr, z_hr):
-            return g_apply(weights, lr, z_hr)
+            with span('exsr.generator'):
+                return g_apply(weights, lr, z_hr)
 
     @torch.inference_mode()
     def forward(lr, z_hr=None):
-        lr = torch.as_tensor(lr, dtype=torch.float32, device=device)
-        if z_hr is not None:
-            z_hr = torch.as_tensor(z_hr, dtype=torch.float32, device=device)
-        with full_fp32():
-            return run(lr, z_hr).clamp(0.0, 1.0)
+        with span('exsr.forward'):
+            lr = torch.as_tensor(lr, dtype=torch.float32, device=device)
+            if z_hr is not None:
+                z_hr = torch.as_tensor(z_hr, dtype=torch.float32,
+                                       device=device)
+            with full_fp32():
+                return run(lr, z_hr).clamp(0.0, 1.0)
 
     return cem, forward
 
@@ -176,15 +180,18 @@ def sweep_values(mode: str, num: int, z_range: float = 1.0) -> list:
 def bucketed_sweep(fwd, lr, zs, table=None):
     """One batched forward over a Z sweep, padded to the fastest bucket
     (:func:`exsr_torch.utils.serve.best_bucket`); returns one
-    ``[1, H, W, 3]`` output per Z."""
-    n = len(zs)
-    lr_rep = torch.as_tensor(lr).repeat_interleave(n, 0)
-    z_cat = torch.cat([torch.as_tensor(z) for z in zs], 0)
-    bucket = best_bucket(n, table)
-    if bucket > n:
-        (lr_rep, z_cat), _ = pad_batch([lr_rep, z_cat], bucket)
-    batched = fwd(lr_rep, z_cat)
-    return [batched[j:j + 1] for j in range(n)]
+    ``[1, H, W, 3]`` output per Z.  One call is the root span
+    ``exsr.sweep``; ``px.returned`` counts the pixels of the outputs."""
+    with span('exsr.sweep'):
+        n = len(zs)
+        lr_rep = torch.as_tensor(lr).repeat_interleave(n, 0)
+        z_cat = torch.cat([torch.as_tensor(z) for z in zs], 0)
+        bucket = best_bucket(n, table)
+        if bucket > n:
+            (lr_rep, z_cat), _ = pad_batch([lr_rep, z_cat], bucket)
+        batched = fwd(lr_rep, z_cat)
+        count('px.returned', n * batched.shape[1] * batched.shape[2])
+        return [batched[j:j + 1] for j in range(n)]
 
 
 def build_zs(args, hr_hw, rng, nz: int = 3):

@@ -35,6 +35,7 @@ from exsr_torch.ops.inv_hth import (compute_inv_hth,
                                     invalid_margin_size_downscale)
 from exsr_torch.ops.kernels.sepfilter import (AdjointTables, sepfilter_down,
                                               sepfilter_edge, sepfilter_up)
+from exsr_torch.utils.logging import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -269,7 +270,10 @@ def cem_wrap(g_apply: Callable, cem_filters: CEMFilters, upscale: int):
     map in HR pixels (``[N, H, W, Cz]``) or None and returns the HR image.
     Returns ``apply(params, lr, z_hr, margins_lr, pre_pad, decompose)``;
     ``pre_pad`` replicate-pads the inputs by the invalidity margins and
-    crops the output back (``exsr/cem/cem.py:251``).
+    crops the output back (``exsr/cem/cem.py:251``).  The pre-pad, and the
+    combine with its crop, are each a span ``exsr.cem``, the generator's
+    call the span ``exsr.generator``; ``px.generated`` counts the HR
+    pixels the generator computes.
     """
 
     def apply(params, lr: torch.Tensor, z_hr: torch.Tensor | None,
@@ -277,19 +281,25 @@ def cem_wrap(g_apply: Callable, cem_filters: CEMFilters, upscale: int):
         sf = upscale
         if pre_pad and margins_lr > 0:
             m = margins_lr
-            lr_in = F.replicate_pad(lr, m)
-            z_in = F.replicate_pad(z_hr, sf * m) if z_hr is not None else None
+            with span('exsr.cem'):
+                lr_in = F.replicate_pad(lr, m)
+                z_in = (F.replicate_pad(z_hr, sf * m)
+                        if z_hr is not None else None)
         else:
             lr_in, z_in = lr, z_hr
-        generated = g_apply(params, lr_in, z_in)
-        out = cem_filters.enforce(lr_in[..., -3:], generated,
-                                  decompose=decompose)
-        if pre_pad and margins_lr > 0:
-            mh = sf * margins_lr
-            if decompose:
-                out = tuple(o[:, mh:-mh, mh:-mh, :] for o in out)
-            else:
-                out = out[:, mh:-mh, mh:-mh, :]
+        with span('exsr.generator'):
+            generated = g_apply(params, lr_in, z_in)
+        count('px.generated', generated.shape[0] * generated.shape[1]
+              * generated.shape[2])
+        with span('exsr.cem'):
+            out = cem_filters.enforce(lr_in[..., -3:], generated,
+                                      decompose=decompose)
+            if pre_pad and margins_lr > 0:
+                mh = sf * margins_lr
+                if decompose:
+                    out = tuple(o[:, mh:-mh, mh:-mh, :] for o in out)
+                else:
+                    out = out[:, mh:-mh, mh:-mh, :]
         return out
 
     return apply

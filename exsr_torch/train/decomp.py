@@ -69,6 +69,7 @@ from exsr_torch.parallel import dist as P
 from exsr_torch.parallel import spatial
 from exsr_torch.parallel.mesh import TrainGrid
 from exsr_torch.train.srragan import TrainState, adam_step, param_grads
+from exsr_torch.utils.logging import span
 from exsr_torch.zopt.optimizer import (adam_init, adam_update,
                                        xavier_uniform_like)
 
@@ -377,14 +378,15 @@ class DecompTrainer:
         """``optimal_z_iters`` Adam steps (lr ``optimal_z_lr``) on pre-tanh
         Z from ``theta0`` against L1 of the decoded image to ``uncomp``
         (both / 255), the generator frozen; the detached ``tanh`` of the
-        result."""
-        theta, opt_state = theta0, adam_init(theta0)
-        for _ in range(self.cfg.optimal_z_iters):
-            grad = self._map_grad(g, comp, uncomp, qf, theta)
-            upd, opt_state = adam_update(grad, opt_state,
-                                         self.cfg.optimal_z_lr)
-            theta = theta + upd
-        return torch.tanh(theta).detach()
+        result.  The span ``exsr.map_loop``."""
+        with span('exsr.map_loop'):
+            theta, opt_state = theta0, adam_init(theta0)
+            for _ in range(self.cfg.optimal_z_iters):
+                grad = self._map_grad(g, comp, uncomp, qf, theta)
+                upd, opt_state = adam_update(grad, opt_state,
+                                             self.cfg.optimal_z_lr)
+                theta = theta + upd
+            return torch.tanh(theta).detach()
 
     def _map_grad(self, g, comp, uncomp, qf, theta) -> torch.Tensor:
         """The MAP objective's gradient at pre-tanh Z ``theta``: the L1

@@ -67,6 +67,7 @@ from exsr_torch.losses.filter_loss import (FilterLossConfig, RatioStats,
 from exsr_torch.ops.structure_tensor import svd_to_latent_z
 from exsr_torch.parallel import dist as P
 from exsr_torch.parallel.mesh import TrainGrid
+from exsr_torch.utils.logging import span
 from exsr_torch.zopt.optimizer import (adam_init, adam_update,
                                        xavier_uniform_like)
 
@@ -197,13 +198,14 @@ def adam_step(state: TrainState, opt: torch.optim.Adam, base_lr: float,
               cfg) -> None:
     """One Adam update at ``lr_scale * multistep_lr(base_lr, step)``
     (``cfg``'s ``lr_steps`` and ``lr_gamma``), the gradients cleared
-    after."""
-    lr = state.lr_scale * multistep_lr(base_lr, cfg.lr_steps, cfg.lr_gamma,
-                                       state.step)
-    for group in opt.param_groups:
-        group['lr'] = lr
-    opt.step()
-    opt.zero_grad(set_to_none=True)
+    after; the span ``exsr.adam``."""
+    with span('exsr.adam'):
+        lr = state.lr_scale * multistep_lr(base_lr, cfg.lr_steps,
+                                           cfg.lr_gamma, state.step)
+        for group in opt.param_groups:
+            group['lr'] = lr
+        opt.step()
+        opt.zero_grad(set_to_none=True)
 
 
 def _mean_metrics(parts: list[dict]) -> dict:
@@ -396,15 +398,17 @@ class SRRaGANTrainer:
     def _optimal_z(self, g, lr_img, hr_unpadded, theta0) -> torch.Tensor:
         """``optimal_z_iters`` Adam steps (lr ``optimal_z_lr``) on pre-tanh
         Z from ``theta0`` against L1 to the ground truth, the generator
-        frozen; returns the detached ``tanh`` of the result."""
-        theta = theta0
-        opt_state = adam_init(theta)
-        for _ in range(self.cfg.optimal_z_iters):
-            grad = self._map_grad(g, lr_img, hr_unpadded, theta)
-            upd, opt_state = adam_update(grad, opt_state,
-                                         self.cfg.optimal_z_lr)
-            theta = theta + upd
-        return torch.tanh(theta).detach()
+        frozen; returns the detached ``tanh`` of the result.  The span
+        ``exsr.map_loop``."""
+        with span('exsr.map_loop'):
+            theta = theta0
+            opt_state = adam_init(theta)
+            for _ in range(self.cfg.optimal_z_iters):
+                grad = self._map_grad(g, lr_img, hr_unpadded, theta)
+                upd, opt_state = adam_update(grad, opt_state,
+                                             self.cfg.optimal_z_lr)
+                theta = theta + upd
+            return torch.tanh(theta).detach()
 
     def _map_grad(self, g, lr_img, hr_unpadded, theta) -> torch.Tensor:
         """The MAP objective's gradient at pre-tanh Z ``theta``: the L1
@@ -516,15 +520,17 @@ class SRRaGANTrainer:
                 state, lr_i, ref_i, z_i, theta0,
                 [P.shard(self.dp, a) for a in draws['alpha'][i]]
                 if 'alpha' in draws else None, dual, whole)
-            (total / accum).backward(inputs=params)
+            with span('exsr.backward'):
+                (total / accum).backward(inputs=params)
             parts.append(m)
         return self._reduced(param_grads(params), _mean_metrics(parts))
 
     def d_step(self, state: TrainState, batch: dict, dual: bool = True,
                draws: dict | None = None):
         """One D update: draws, gradients, Adam.  ``batch`` holds device
-        tensors ``'lr'`` ``[B, h, w, 3]`` and ``'hr'`` ``[B, H, W, 3]``."""
-        with full_fp32():
+        tensors ``'lr'`` ``[B, h, w, 3]`` and ``'hr'`` ``[B, H, W, 3]``.
+        The root span ``exsr.d_step``."""
+        with span('exsr.d_step'), full_fp32():
             if draws is None:
                 draws = self.draw_d(state, batch['hr'].shape, dual)
             _, metrics = self.d_grads(state, batch['lr'], batch['hr'],
@@ -634,7 +640,8 @@ class SRRaGANTrainer:
             total, m, stats = self._g_loss(
                 state, lr_i, ref_i, z_i, svd_i, theta0, stats, dual,
                 use_gan, whole)
-            (total / accum).backward(inputs=params)
+            with span('exsr.backward'):
+                (total / accum).backward(inputs=params)
             stats = stats.detached()
             parts.append(m)
         return (*self._reduced(param_grads(params), _mean_metrics(parts)),
@@ -643,8 +650,8 @@ class SRRaGANTrainer:
     def g_step(self, state: TrainState, batch: dict, dual: bool = True,
                use_gan: bool = True, draws: dict | None = None):
         """One G update: draws, gradients, Adam; D and its Adam state are
-        left as they were."""
-        with full_fp32():
+        left as they were.  The root span ``exsr.g_step``."""
+        with span('exsr.g_step'), full_fp32():
             if draws is None:
                 draws = self.draw_g(state, batch['hr'].shape, dual)
             _, metrics, state.ratio_stats = self.g_grads(

@@ -305,8 +305,7 @@ def test_data_loader_matches_exsr_and_is_deterministic():
 def test_metric_log_dashboard_and_writers(tmp_path, capsys, monkeypatch):
     import sys
     from exsr_torch.utils.logging import (JsonlLogger, PrintLogger,
-                                          StepTimer, TensorboardWriter,
-                                          profile_trace)
+                                          TensorboardWriter, profile_trace)
     log = MetricLog()
     for s in range(1, 6):
         log.append(s, loss=1.0 / s)
@@ -332,8 +331,6 @@ def test_metric_log_dashboard_and_writers(tmp_path, capsys, monkeypatch):
     print('teed')
     pl.close()
     assert 'teed' in open(tmp_path / 'pl' / 'print_log.txt').read()
-    t = StepTimer()
-    assert t.tick() > 0
     with profile_trace(str(tmp_path / 'trace')) as prof:
         torch.ones(4).sum()
     assert prof is not None and os.path.exists(
