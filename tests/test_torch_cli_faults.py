@@ -19,7 +19,6 @@ import threading
 
 import numpy as np
 import pytest
-import torch
 from PIL import Image
 
 TIMEOUT = 10.0
@@ -28,14 +27,6 @@ SR_TINY = ['--scale', '4', '--patch', '112', '--batch', '2', '--nb', '1',
            '--d_strides', '1', '--print_freq', '1', '--device', 'cpu']
 JPEG_TINY = ['--patch', '64', '--batch', '2', '--nf', '16', '--nb', '3',
              '--print_freq', '1', '--ckpt_freq', '1', '--device', 'cpu']
-
-
-@pytest.fixture(autouse=True, scope='module')
-def _two_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _pngs(root, n, size):

@@ -42,14 +42,6 @@ GRAD_TOL, METRIC_RTOL, STATS_TOL = 1e-4, 1e-4, 1e-5
 SVD = 'SVDinNormedOut_structure_tensor'
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _two_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
-
-
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 

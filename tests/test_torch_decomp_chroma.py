@@ -33,14 +33,6 @@ B, PATCH, NF, DEPTH, YLAT = 2, 64, 16, 3, 8
 GRAD_TOL, METRIC_RTOL, STATS_TOL = 1e-4, 1e-4, 1e-5
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _two_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
-
-
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 

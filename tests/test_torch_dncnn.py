@@ -18,14 +18,6 @@ from exsr_torch.models.convert import (dncnn_d_from_exsr_vars,
 TOL = 2e-5
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _two_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
-
-
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 

@@ -24,14 +24,6 @@ from exsr_torch.train.checkpoints import CheckpointManager, load_exsr_npz
 WIDTH = ['--nf', '16', '--nb', '3']
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _two_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
-
-
 @pytest.fixture(scope='module')
 def data(tmp_path_factory):
     """Two PNGs (one not a multiple of 8) and exsr's PRNGKey(0) init of

@@ -13,16 +13,6 @@ from exsr_torch.jpeg import codec as P
 from exsr_torch.ops import dct as PD
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _two_threads():
-    """Two intra-op threads: under the suite's parallel workers, torch's
-    default of one thread per core spins them against each other."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
-
-
 def _images(n, h, w, seed):
     """Y images in [0, 255]: smooth content plus strong noise, so that every
     frequency, and quantisation ties, occur."""

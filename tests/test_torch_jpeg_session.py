@@ -20,14 +20,6 @@ from exsr.utils import misc as EM
 HW = 64
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _two_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
-
-
 def _image(hw=HW, seed=0):
     rng = np.random.default_rng(seed)
     img = rng.uniform(size=(hw, hw, 3))

@@ -33,14 +33,6 @@ SMALL = dict(g_chan=16, d_chan=16, d_n_layers=3)
 ITERS = 10
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _two_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
-
-
 def _np(tree):
     return jax.tree.map(np.asarray, dict(tree))
 

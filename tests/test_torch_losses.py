@@ -34,17 +34,6 @@ from exsr_torch.models.discriminators import BatchNorm, \
 from exsr_torch.train import controller as TC
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _two_threads():
-    """Two intra-op threads for this file's tests: under the suite's
-    parallel workers, torch's default of one thread per core spins them
-    against each other (this file's wall time fell threefold)."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
-
-
 def _abs_or_rel(a, b):
     """The largest difference, relative where ``b`` exceeds 1."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)

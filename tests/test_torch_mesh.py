@@ -86,7 +86,7 @@ def _rank(init, rank, world, tmp, grid, d):
     from exsr_torch.parallel import spatial
     from exsr_torch.parallel.halo import halo_exchange
     from exsr_torch.parallel.mesh import ShardingRules, make_mesh
-    torch.set_num_threads(1)
+    torch.set_num_threads(1)  # one a rank; ranks share a worker
     dist.init_process_group('gloo', init_method=init, rank=rank,
                             world_size=world)
     data, sp = GRIDS[grid]

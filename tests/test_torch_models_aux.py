@@ -26,14 +26,6 @@ from exsr_torch.models import convert as C
 TOL = 1e-5
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _two_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
-
-
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 

@@ -31,13 +31,18 @@ def run_ranks(module: str, func: str, tmp_path, world: int = 2,
     ``world`` subprocesses, one per rank; their outputs.  Fails when a
     rank fails or the ranks outlast ``timeout`` seconds together."""
     init = f'file://{tmp_path}/dist_init'
+    # one thread a rank: the ranks share one test worker's CPU share
     env = {**os.environ, 'OMP_NUM_THREADS': '1',
            'PYTHONPATH': os.pathsep.join(
                [ROOT, TESTS, os.environ.get('PYTHONPATH', '')])}
     procs = []
     for rank in range(world):
+        # a rank that exits with its gloo group alive aborts now and then
+        # ("terminate called without an active exception")
         code = (f'import {module} as m; m.{func}({init!r}, {rank}, '
-                f'{world}, {str(tmp_path)!r}, *{args!r})')
+                f'{world}, {str(tmp_path)!r}, *{args!r}); '
+                'import torch.distributed as d; '
+                'd.is_initialized() and d.destroy_process_group()')
         procs.append(subprocess.Popen(
             [sys.executable, '-c', code], env=env, cwd=str(tmp_path),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -63,7 +68,7 @@ def join(init: str, rank: int, world: int):
     """A rank's process group and its :class:`DataParallel`."""
     import torch.distributed as dist
     from exsr_torch.parallel.dist import DataParallel
-    torch.set_num_threads(1)
+    torch.set_num_threads(1)  # one a rank; ranks share a worker
     dist.init_process_group('gloo', init_method=init, rank=rank,
                             world_size=world)
     return DataParallel(rank, world)

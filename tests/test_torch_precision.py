@@ -27,14 +27,6 @@ FUNCTIONS = {torch.nn.functional.conv2d: 'convolution',
              torch.matmul: 'mm', torch.Tensor.__matmul__: 'mm'}
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _two_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
-
-
 def _flags():
     return (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
@@ -387,7 +379,7 @@ def _sharded_calls(mesh) -> dict:
 def _rank_sharded(init, rank, world, tmp):
     import torch.distributed as dist
     from exsr_torch.parallel.mesh import make_mesh
-    torch.set_num_threads(1)
+    torch.set_num_threads(1)  # one a rank; ranks share a worker
     dist.init_process_group('gloo', init_method=init, rank=rank,
                             world_size=world)
     calls = _sharded_calls(make_mesh(1, world, device='cpu'))

@@ -16,15 +16,6 @@ from exsr_torch.utils.serve import best_bucket
 LR, NZ = 8, 3
 
 
-@pytest.fixture(scope='module', autouse=True)
-def one_thread():
-    """One intra-op thread: at these sizes more threads only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope='module')
 def served():
     """A tiny CEM-wrapped generator and one sweep's inputs: LR 8², three

@@ -39,17 +39,6 @@ B = 4
 GRAD_TOL, METRIC_RTOL, STATS_TOL = 1e-4, 1e-4, 1e-5
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _two_threads():
-    """Two intra-op threads for this file's tests: under the suite's
-    parallel workers, torch's default of one thread per core spins them
-    against each other (this file's wall time fell threefold)."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
-
-
 @pytest.fixture(scope='module')
 def setup():
     """exsr's tiny setup and the same weights in the port's modules."""
@@ -61,9 +50,10 @@ def setup():
     patch = 4 * (2 * jcem.invalidity_margins_lr + 8)
     lr_size, d_input = patch // 4, patch - 2 * margins
     jg = JNet(nb=1, nf=16, gc=8, latent_channels=3)
-    g_params = jg.init(jax.random.PRNGKey(0),
-                       jnp.zeros((1, lr_size, lr_size, 3)),
-                       jnp.zeros((1, patch, patch, 3)))
+    # jitted: one compile in place of one per eager op (~45 s cold)
+    g_params = jax.jit(jg.init)(jax.random.PRNGKey(0),
+                                jnp.zeros((1, lr_size, lr_size, 3)),
+                                jnp.zeros((1, patch, patch, 3)))
     jwrapped = jcem_wrap(lambda p, x, z: jg.apply(p, x, z), jfilt, upscale=4)
     wrapped = cem_wrap(lambda m, x, z: m(x, z), filt, upscale=4)
     ds = {}
@@ -73,8 +63,8 @@ def setup():
             ('patch', JPatch(ndf=8, n_layers=3, decomposed_input=True,
                              pre_clipping=True), 'pair')):
         x = jnp.zeros((1, d_input, d_input, 3))
-        ds[kind] = (jd, dict(jd.init(jax.random.PRNGKey(1),
-                                     (x, x) if x0 else x)))
+        ds[kind] = (jd, dict(jax.jit(jd.init)(jax.random.PRNGKey(1),
+                                              (x, x) if x0 else x)))
     rng = np.random.default_rng(0)
     batch = {'lr': rng.uniform(size=(B, lr_size, lr_size, 3))
              .astype(np.float32),

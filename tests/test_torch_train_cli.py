@@ -26,17 +26,6 @@ TINY = ['--scale', '4', '--patch', '112', '--batch', '2', '--nb', '1',
         '--d_strides', '1', '--print_freq', '1', '--device', 'cpu']
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _two_threads():
-    """Two intra-op threads for this file's tests: under the suite's
-    parallel workers, torch's default of one thread per core spins them
-    against each other (this file's wall time fell threefold)."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
-
-
 @pytest.fixture(scope='module')
 def images(tmp_path_factory):
     root = tmp_path_factory.mktemp('train_cli')

@@ -35,7 +35,7 @@ from exsr_torch.models.convert import (d_from_exsr_vars,
                                        dncnn_d_from_exsr_vars,
                                        dncnn_from_exsr_vars, from_exsr_params)
 from test_torch_parallel import run_job, run_jobs_on_ranks
-from test_torch_train import _two_threads, setup  # noqa: F401
+from test_torch_train import setup  # noqa: F401
 
 GRAD_TOL, METRIC_RTOL, STATS_TOL = TS.GRAD_TOL, TS.METRIC_RTOL, TS.STATS_TOL
 

@@ -68,14 +68,6 @@ runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)
 '''
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _two_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
-
-
 @pytest.fixture(scope='module')
 def images(tmp_path_factory):
     root = tmp_path_factory.mktemp('ddp_cli')
@@ -94,6 +86,7 @@ def _launch(tmp_path, module: str, exp: str, args: list, world: int = 2):
     cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
            '--nproc_per_node', str(world), str(guard), module, exp,
            '--exp_dir', exp, *args]
+    # one thread a rank: the ranks share one test worker's CPU share
     env = {**os.environ, 'OMP_NUM_THREADS': '1',
            'PYTHONPATH': os.pathsep.join([ROOT,
                                           os.environ.get('PYTHONPATH', '')])}

@@ -25,8 +25,7 @@ from exsr.ops.structure_tensor import svd_to_latent_z
 from exsr_torch.models.convert import from_exsr_params
 from test_torch_train import (B, GRAD_TOL, METRIC_RTOL, STATS_TOL,  # noqa
                               _batch, _close_grads, _close_metrics, _exsr_g,
-                              _np, _to_torch, _trainers, _two_threads,
-                              setup)
+                              _np, _to_torch, _trainers, setup)
 
 
 def _exsr_float64_grads(jtr, jstate, setup, u, use_gan):

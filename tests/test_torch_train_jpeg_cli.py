@@ -31,14 +31,6 @@ TINY = ['--patch', '64', '--batch', '2', '--nf', '16', '--nb', '3',
         '--print_freq', '1', '--ckpt_freq', '1', '--device', 'cpu']
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _two_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
-
-
 @pytest.fixture(scope='module')
 def images(tmp_path_factory):
     root = tmp_path_factory.mktemp('train_jpeg')

@@ -86,7 +86,7 @@ def _rank(init, rank, world, tmp, grid):
     import torch.distributed as dist
     from exsr_torch.parallel.mesh import make_mesh
     from test_torch_parallel import build_trainer
-    torch.set_num_threads(1)
+    torch.set_num_threads(1)  # one a rank; ranks share a worker
     dist.init_process_group('gloo', init_method=init, rank=rank,
                             world_size=world)
     mesh = make_mesh(*GRIDS[grid], device='cpu')
@@ -298,35 +298,30 @@ def _chroma(grid: str):
 
 @pytest.fixture(scope='module')
 def runs(tmp_path_factory):
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        d = tmp_path_factory.mktemp('train_jpeg_spatial')
-        chroma = {grid: _chroma(grid) for grid in GRIDS}
-        jobs = {**_y_jobs(), **chroma['2x2'][1]}
-        torch.save(jobs, d / 'jobs.pt')
-        one = {case: run_job(job) for case, job in jobs.items()}
-        dirs = {grid: d / grid for grid in GRIDS}
-        t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(
-                len(GRIDS) + EXSR_THREADS) as ex:
-            futs = []
-            for grid, sub in dirs.items():
-                os.makedirs(sub)
-                futs.append(ex.submit(run_ranks,
-                                      'test_torch_train_jpeg_spatial',
-                                      '_rank', sub, 4, 300, (grid,)))
-            refs = {(grid, case): ex.submit(_y_ref, case, grid)
-                    for grid in GRIDS for case in CASES}
-            refs = {k: f.result() for k, f in refs.items()}
-            for f in futs:
-                f.result()
-        print(f'ranks and exsr side {time.perf_counter() - t0:.1f} s')
-        for grid in GRIDS:
-            refs.update({(grid, case): ref
-                         for case, ref in chroma[grid][0].items()})
-    finally:
-        torch.set_num_threads(saved)
+    d = tmp_path_factory.mktemp('train_jpeg_spatial')
+    chroma = {grid: _chroma(grid) for grid in GRIDS}
+    jobs = {**_y_jobs(), **chroma['2x2'][1]}
+    torch.save(jobs, d / 'jobs.pt')
+    one = {case: run_job(job) for case, job in jobs.items()}
+    dirs = {grid: d / grid for grid in GRIDS}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(
+            len(GRIDS) + EXSR_THREADS) as ex:
+        futs = []
+        for grid, sub in dirs.items():
+            os.makedirs(sub)
+            futs.append(ex.submit(run_ranks,
+                                  'test_torch_train_jpeg_spatial',
+                                  '_rank', sub, 4, 300, (grid,)))
+        refs = {(grid, case): ex.submit(_y_ref, case, grid)
+                for grid in GRIDS for case in CASES}
+        refs = {k: f.result() for k, f in refs.items()}
+        for f in futs:
+            f.result()
+    print(f'ranks and exsr side {time.perf_counter() - t0:.1f} s')
+    for grid in GRIDS:
+        refs.update({(grid, case): ref
+                     for case, ref in chroma[grid][0].items()})
     ranks = {grid: [torch.load(sub / f'r{r}.pt', weights_only=False)
                     for r in range(4)] for grid, sub in dirs.items()}
     return {'refs': refs, 'one': one, 'ranks': ranks}

@@ -159,7 +159,7 @@ def _run(job: dict, mesh=None, fault=None) -> dict:
 def _rank(init, rank, world, tmp, grid):
     import torch.distributed as dist
     from exsr_torch.parallel.mesh import make_mesh
-    torch.set_num_threads(1)
+    torch.set_num_threads(1)  # one a rank; ranks share a worker
     dist.init_process_group('gloo', init_method=init, rank=rank,
                             world_size=world)
     mesh = make_mesh(*GRIDS[grid], device='cpu')
@@ -302,48 +302,43 @@ def _exsr_side(setup, states):
 @pytest.fixture(scope='module')
 def runs(tmp_path_factory):
     import test_torch_train as TS
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        setup = TS.setup.__wrapped__()
-        d = tmp_path_factory.mktemp('train_spatial')
-        _, batch = TS._batch(setup)
-        d_input = batch['hr'].shape[1] - 2 * setup['margins']
-        jobs, states, one = {}, {}, {}
-        for case, (overrides, step, dual, critic) in CASES.items():
-            plain = case in PLAIN_CASES
-            jtr, jstate, tr, state = (
-                _plain_trainers(setup, overrides) if plain else
-                TS._trainers(setup, overrides, critic))
-            states[case] = (jtr, jstate)
-            jobs[case] = {
-                'plain': plain, 'cfg': dict(tr.cfg.__dict__),
-                'critic': critic,
-                'd_input': d_input,
-                'g_state': {k: v.clone()
-                            for k, v in state.g.state_dict().items()},
-                'd_state': {k: v.clone()
-                            for k, v in state.d.state_dict().items()},
-                'step': step, 'dual': dual, 'batch': batch,
-                'draws': _draws(jtr, jstate, batch['hr'].shape, step, dual)}
-            one[case] = _run(jobs[case])
-        torch.save(jobs, d / 'jobs.pt')
-        dirs = {grid: d / grid for grid in GRIDS}
-        with concurrent.futures.ThreadPoolExecutor(len(GRIDS)) as ex:
-            futs = []
-            for grid, sub in dirs.items():
-                os.makedirs(sub)
-                futs.append(ex.submit(run_ranks, 'test_torch_train_spatial',
-                                      '_rank', sub, 4, 300, (grid,)))
-            t0 = time.perf_counter()
-            refs = _exsr_side(setup, states)
-            t_exsr = time.perf_counter() - t0
-            for f in futs:
-                f.result()
-            t_ranks = time.perf_counter() - t0
-        print(f'exsr side {t_exsr:.1f} s, ranks {t_ranks:.1f} s')
-    finally:
-        torch.set_num_threads(saved)
+    setup = TS.setup.__wrapped__()
+    d = tmp_path_factory.mktemp('train_spatial')
+    _, batch = TS._batch(setup)
+    d_input = batch['hr'].shape[1] - 2 * setup['margins']
+    jobs, states, one = {}, {}, {}
+    for case, (overrides, step, dual, critic) in CASES.items():
+        plain = case in PLAIN_CASES
+        jtr, jstate, tr, state = (
+            _plain_trainers(setup, overrides) if plain else
+            TS._trainers(setup, overrides, critic))
+        states[case] = (jtr, jstate)
+        jobs[case] = {
+            'plain': plain, 'cfg': dict(tr.cfg.__dict__),
+            'critic': critic,
+            'd_input': d_input,
+            'g_state': {k: v.clone()
+                        for k, v in state.g.state_dict().items()},
+            'd_state': {k: v.clone()
+                        for k, v in state.d.state_dict().items()},
+            'step': step, 'dual': dual, 'batch': batch,
+            'draws': _draws(jtr, jstate, batch['hr'].shape, step, dual)}
+        one[case] = _run(jobs[case])
+    torch.save(jobs, d / 'jobs.pt')
+    dirs = {grid: d / grid for grid in GRIDS}
+    with concurrent.futures.ThreadPoolExecutor(len(GRIDS)) as ex:
+        futs = []
+        for grid, sub in dirs.items():
+            os.makedirs(sub)
+            futs.append(ex.submit(run_ranks, 'test_torch_train_spatial',
+                                  '_rank', sub, 4, 300, (grid,)))
+        t0 = time.perf_counter()
+        refs = _exsr_side(setup, states)
+        t_exsr = time.perf_counter() - t0
+        for f in futs:
+            f.result()
+        t_ranks = time.perf_counter() - t0
+    print(f'exsr side {t_exsr:.1f} s, ranks {t_ranks:.1f} s')
     ranks = {grid: [torch.load(sub / f'r{r}.pt', weights_only=False)
                     for r in range(4)] for grid, sub in dirs.items()}
     return {'refs': refs, 'one': one, 'ranks': ranks, 'd_input': d_input}

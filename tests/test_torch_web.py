@@ -45,14 +45,6 @@ HR = 96
 LOSS_TOL = 1e-4
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _two_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
-
-
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
